@@ -1,0 +1,1 @@
+"""inference of the PyTorch/CUDA port (see the package docstring)."""

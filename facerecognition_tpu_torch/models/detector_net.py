@@ -1,0 +1,137 @@
+"""Single-stage face detector: the DenseDetNet backbone, anchors and decode.
+
+Counterpart of ``facerecognition_tpu/models/detector_net.py`` (the ``dense``
+arch, shipped as ``assets/detector_v4_128.msgpack``). Input and output keep
+the JAX layout: (B, S, S, 3) normalized NHWC → (B, A, 15) raw predictions,
+A = (S/8)²·2 + (S/16)²·6 anchors ordered (y, x, anchor). Each anchor
+predicts [logit, dcx, dcy, w, h, 5 × (lx, ly)] relative to its centre.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``padding='SAME'``: total pad ``(ceil(n/s) - 1)·s + k - n``, the
+    extra pixel at the end. A stride-2 3x3 conv on an even input pads (0, 1),
+    where torch's ``padding=1`` would pad (1, 1)."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):
+        total = max((math.ceil(n / stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class _SameConv(nn.Conv2d):
+    """Conv2d with flax's SAME padding (no implicit padding of its own)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+        super().__init__(cin, cout, kernel, stride=stride, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(_same_pad(x, self.kernel_size[0], self.stride[0]))
+
+
+class DenseDetNet(nn.Module):
+    """Plain 3x3/5x5 convolution detector backbone with two heads."""
+
+    def __init__(self):
+        super().__init__()
+        self.stem = nn.Conv2d(3, 32, 5, stride=2, padding=2)  # S/2
+        self.c1 = _SameConv(32, 48, 3)
+        self.d1 = _SameConv(48, 64, 3, 2)  # S/4
+        self.c2 = _SameConv(64, 64, 3)
+        self.d2 = _SameConv(64, 96, 3, 2)  # S/8
+        self.c3 = _SameConv(96, 96, 3)
+        self.c4 = _SameConv(96, 96, 3)
+        self.d3 = _SameConv(96, 128, 3, 2)  # S/16
+        self.c5 = _SameConv(128, 128, 3)
+        self.head1 = nn.Conv2d(96, 2 * 15, 1)
+        self.head2 = nn.Conv2d(128, 6 * 15, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float().permute(0, 3, 1, 2)
+        x = F.relu(self.stem(x))
+        x = F.relu(self.c1(x))
+        x = F.relu(self.d1(x))
+        x = F.relu(self.c2(x))
+        x = F.relu(self.d2(x))
+        x = F.relu(self.c3(x))
+        f1 = F.relu(self.c4(x))
+        x = F.relu(self.d3(f1))
+        f2 = F.relu(self.c5(x))
+        b = x.shape[0]
+        # NHWC before the reshape keeps the flax anchor order (y, x, anchor).
+        out1 = self.head1(f1).permute(0, 2, 3, 1).reshape(b, -1, 15)
+        out2 = self.head2(f2).permute(0, 2, 3, 1).reshape(b, -1, 15)
+        return torch.cat([out1, out2], dim=1)
+
+
+DETECTOR_ARCHS = {"dense": DenseDetNet}
+
+
+def build_detector_net(arch: str = "dense") -> nn.Module:
+    """Detector backbone by the checkpoint's ``arch`` name."""
+    if arch == "blaze":
+        raise NotImplementedError(
+            "BlazeFaceNet (the older detector checkpoints) is not ported yet "
+            "(ROADMAP Queue 1, detector item); use the dense v4 checkpoint"
+        )
+    try:
+        return DETECTOR_ARCHS[arch]()
+    except KeyError:
+        raise ValueError(
+            f"unknown detector arch {arch!r}; have {sorted(DETECTOR_ARCHS)}"
+        ) from None
+
+
+def anchor_centers(input_size: int) -> np.ndarray:
+    """(A, 3) anchors: centre x, centre y, base size, in input pixels."""
+    out = []
+    for grid, n_anchor, base in (
+        (input_size // 8, 2, input_size / 8),
+        (input_size // 16, 6, input_size / 4),
+    ):
+        step = input_size / grid
+        ys, xs = np.mgrid[0:grid, 0:grid]
+        c = np.stack([(xs + 0.5) * step, (ys + 0.5) * step], -1).reshape(-1, 2)
+        c = np.repeat(c, n_anchor, axis=0)
+        s = np.full((len(c), 1), base, np.float32)
+        out.append(np.concatenate([c, s], -1))
+    return np.concatenate(out).astype(np.float32)
+
+
+def decode_predictions(raw: torch.Tensor, anchors: torch.Tensor):
+    """Raw predictions (..., 15) with their anchors (..., 3), e.g. (B, A, 15)
+    with (A, 3) → scores (..., ), xyxy boxes (..., 4) and landmarks
+    (..., 5, 2), in input pixels."""
+    cx0, cy0, base = anchors[..., 0], anchors[..., 1], anchors[..., 2]
+    scores = torch.sigmoid(raw[..., 0])
+    cx = cx0 + raw[..., 1] * base * 0.5
+    cy = cy0 + raw[..., 2] * base * 0.5
+    w = torch.exp(torch.clamp(raw[..., 3], -4.0, 4.0)) * base
+    h = torch.exp(torch.clamp(raw[..., 4], -4.0, 4.0)) * base
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    lm = raw[..., 5:15].reshape(*raw.shape[:-1], 5, 2) * base[..., None, None] * 0.5
+    landmarks = lm + torch.stack([cx0, cy0], -1)[..., None, :]
+    return scores, boxes, landmarks
+
+
+def detect_best_face(raw: torch.Tensor, anchors: torch.Tensor):
+    """The single best face per image: argmax of the logit, one-anchor decode.
+
+    raw (B, A, 15) → box (B, 4) xyxy, landmarks (B, 5, 2), score (B,). Greedy
+    NMS's first pick is the score argmax, so this is the top slot of the full
+    post-process without its top-k and NMS. Ties go to the first anchor, as
+    ``jnp.argmax``.
+    """
+    i = torch.argmax(raw[..., 0], dim=-1)
+    r = torch.gather(raw, 1, i[:, None, None].expand(-1, 1, raw.shape[-1]))[:, 0]
+    scores, boxes, landmarks = decode_predictions(r, anchors[i])
+    return boxes, landmarks, scores

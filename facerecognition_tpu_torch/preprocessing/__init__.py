@@ -1,0 +1,1 @@
+"""preprocessing of the PyTorch/CUDA port (see the package docstring)."""

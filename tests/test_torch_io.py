@@ -1,0 +1,186 @@
+"""The port's checkpoint reader, imports, device rule and kernel guards.
+
+The reader must decode the shipped flax msgpack assets leaf for leaf as
+``flax.serialization.msgpack_restore`` does, without flax or msgpack.
+"""
+
+import os
+import subprocess
+import sys
+
+import flax.serialization
+import numpy as np
+import pytest
+import torch
+
+from facerecognition_tpu_torch import _build
+from facerecognition_tpu_torch.convert import flax_to_state_dict
+from facerecognition_tpu_torch.ops import stream_topk as st
+from facerecognition_tpu_torch.utils.serialization import load_variables, unpackb
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ASSETS = ("detector_v4_128.msgpack", "arcface_synthid9k_ultraslim_512.msgpack")
+
+
+def _assert_tree_equal(a, b, path=""):
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and a.keys() == b.keys(), path
+        for key in b:
+            _assert_tree_equal(a[key], b[key], f"{path}/{key}")
+    elif isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray), path
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert type(a) is type(b) and a == b, (path, a, b)
+
+
+@pytest.mark.parametrize("name", ASSETS)
+def test_reader_matches_flax_on_shipped_assets(name):
+    path = os.path.join(REPO, "assets", name)
+    with open(path, "rb") as f:
+        ref = flax.serialization.msgpack_restore(f.read())
+    _assert_tree_equal(load_variables(path), ref)
+
+
+def test_reader_matches_flax_on_every_leaf_kind(rng):
+    tree = {
+        "f32": rng.normal(size=(3, 4)).astype(np.float32),
+        "f64": rng.normal(size=(5,)),
+        "i32": rng.integers(-9, 9, size=(2, 2, 2)).astype(np.int32),
+        "u8": rng.integers(0, 255, size=(7,)).astype(np.uint8),
+        "bool": np.array([True, False]),
+        "empty": np.zeros((0, 3), np.float32),
+        "scalar": np.float32(2.5),
+        "nested": {
+            "ints": {"pos": 7, "neg": -3, "big": 2**40, "negbig": -(2**33)},
+            "float": 3.8100254,
+            "text": "dense" * 10,
+            "flag": True,
+            "none": None,
+        },
+        "list": [1, 2.0, "x"],
+    }
+    ref = flax.serialization.msgpack_restore(flax.serialization.msgpack_serialize(tree))
+    got = unpackb(flax.serialization.msgpack_serialize(tree))
+    _assert_tree_equal(got, ref)
+
+
+def test_reader_rejects_truncated_data():
+    data = flax.serialization.msgpack_serialize({"a": np.arange(4, dtype=np.float32)})
+    with pytest.raises(ValueError):
+        unpackb(data[:-3])
+
+
+def test_convert_layouts():
+    variables = {
+        "params": {
+            "conv": {"kernel": np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5),
+                     "bias": np.ones(5, np.float32)},
+            "fc": {"kernel": np.arange(6, dtype=np.float32).reshape(2, 3)},
+            "bn": {"scale": np.full(3, 2.0, np.float32), "bias": np.zeros(3, np.float32)},
+            "arcface": {"weight": np.zeros((7, 3), np.float32)},
+        },
+        "batch_stats": {"bn": {"mean": np.ones(3, np.float32), "var": np.full(3, 4.0, np.float32)}},
+    }
+    sd = flax_to_state_dict(variables)
+    assert sd["conv.weight"].shape == (5, 4, 2, 3)  # HWIO → OIHW
+    np.testing.assert_array_equal(
+        sd["conv.weight"].numpy(), variables["params"]["conv"]["kernel"].transpose(3, 2, 0, 1)
+    )
+    np.testing.assert_array_equal(sd["fc.weight"].numpy(), variables["params"]["fc"]["kernel"].T)
+    assert sd["bn.weight"].tolist() == [2.0] * 3
+    assert sd["bn.running_var"].tolist() == [4.0] * 3
+    assert sd["bn.num_batches_tracked"].item() == 0
+    assert not any(k.startswith("arcface") for k in sd)
+
+
+def test_port_imports_nothing_of_jax():
+    """Importing every module of the port and chip_smoke leaves jax, flax,
+    msgpack, cv2, PIL and the JAX package out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import facerecognition_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = ('jax', 'flax', 'msgpack', 'cv2', 'PIL', 'facerecognition_tpu')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_csrc_does_not_include_torch_headers():
+    for name in os.listdir(_build.CSRC_DIR):
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            src = f.read()
+        assert "torch/extension.h" not in src and "#include <torch" not in src, name
+
+
+def _entry_points():
+    from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+
+    return {
+        "FaceDetector": lambda: FaceDetector(),
+        "Embedder": lambda: load_arcface_model(stage_sizes=(1, 1, 1, 1)),
+        "Gallery": lambda: Gallery(16),
+        "RecognitionEngine": lambda: RecognitionEngine(),
+    }
+
+
+@pytest.mark.parametrize("entry", ["FaceDetector", "Embedder", "Gallery", "RecognitionEngine"])
+def test_entry_points_default_to_the_card(entry):
+    """No device argument means CUDA: without a card that raises, and asks
+    for device='cpu'; nothing moves to the CPU silently."""
+    make = _entry_points()[entry]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_find_nvcc_raises_without_toolkit(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+@pytest.mark.parametrize(
+    "q, g, k, error",
+    [
+        (torch.zeros(2, 8), torch.zeros(5, 8, device="meta"), 3, ValueError),  # mixed devices
+        (torch.zeros(2, 8, device="meta", dtype=torch.float64),
+         torch.zeros(5, 8, device="meta", dtype=torch.float64), 3, TypeError),
+        (torch.zeros(2, 8, device="meta"), torch.zeros(5, 8, device="meta"), 33, ValueError),
+        (torch.zeros(2, 6, device="meta"), torch.zeros(5, 6, device="meta"), 3, ValueError),
+        (torch.zeros(2, 8, device="meta"), torch.zeros(5, 4, device="meta"), 3, ValueError),
+        (torch.zeros(2, 8, device="meta"), torch.zeros(8, 5, device="meta").T, 3, ValueError),
+    ],
+)
+def test_stream_topk_checks_before_launch(q, g, k, error):
+    before = st.launches.count
+    with pytest.raises(error):
+        st.stream_topk(q, g, k)
+    assert st.launches.count == before
+
+
+def test_stream_topk_off_cpu_never_takes_the_plain_path(tmp_path, monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel (here: its build,
+    which fails without nvcc) and never to stream_topk_reference."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(st, "stream_topk_reference", lambda *a: pytest.fail("fell back"))
+    q = torch.zeros(2, 8, device="meta")
+    g = torch.zeros(5, 8, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        st.stream_topk(q, g, 3)
