@@ -12,7 +12,11 @@ Phases, each printing its wall seconds:
    the ptxas register / shared-memory / spill lines).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the serving match shapes, with planted duplicate rows (the lowest
-   index must win); kernel, plain and library times by CUDA events.
+   index must win); kernel, plain and library times by CUDA events, the
+   kernel and the library timed in turns (library, kernel, kernel, library)
+   and reported as medians; the host time of a call, the device time of
+   each of the wrapper's kernels from the profiler's trace, and for the
+   first case the SM clock and power draw under load (nvidia-smi).
 4. serving: the shipped detector and ArcFace assets on the card, a
    100,000-row gallery with each frame's own embedding planted, and 16
    requests through ``MicroBatcher`` from 4 threads with the streaming
@@ -31,6 +35,7 @@ import contextlib
 import faulthandler
 import json
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -38,20 +43,30 @@ import time
 
 WATCHDOG_S = 900
 SEED = 0
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
+# H100 SXM published peaks (NVIDIA data sheet, dense). The kernel's bound
 # is the larger of its bytes over the memory rate and its operations over
-# the float32 (non-tensor-core) rate.
+# the rate of the arithmetic it uses: three tf32 tensor-core products
+# (3 * 2BND). The first design's yardstick, float32 FMA outside the tensor
+# cores (2BND at 67 TFLOP/s), is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
+DESIGN = "3xTF32 wgmma, TMA ring, gallery rows on M"
 KERNEL_CASES = (  # (B, N, D, k)
     (128, 1_000_000, 512, 5),
     (1, 1_000_000, 512, 5),
     (32, 100_000, 512, 5),
+    (512, 1_000_000, 512, 5),  # the largest serving bucket: several query groups
+    (300, 20_000, 512, 5),  # a ragged query group
+    (5, 10_001, 132, 7),  # D not a multiple of the 32-dim chunk, ragged N
     (7, 3_001, 512, 10),
     (40, 5_000, 512, 16),
     (3, 5_000, 512, 32),
     (4, 3, 512, 5),
 )
+# The three kernels one stream_topk call launches.
+STREAM_TOPK_KERNELS = ("split_queries", "topk_partial", "topk_merge")
+TIMING_ROUNDS = 2  # each round times library, kernel, kernel, library
 GALLERY_ROWS = 100_000
 N_FRAMES = 16
 N_CLIENTS = 4
@@ -88,6 +103,71 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds per call, the device left to run behind."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def device_us(fn, kernels, calls: int = 5) -> dict:
+    """Device microseconds per call of each of ``kernels``, the names of the
+    kernels that ``fn`` launches, from the profiler's CUDA trace. Fails if
+    the trace lacks one of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", ev.key)
+        base = name.split("<")[0]
+        if ev.device_time_total > 0 and base in kernels:
+            out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+    found = {name.split("<")[0] for name in out}
+    check(found == set(kernels), f"profiler trace holds {sorted(found)}, not {list(kernels)}")
+    return out
+
+
+def clocks_under_load(fn, seconds: float = 2.0) -> dict:
+    """SM clock (MHz) and power draw (W) sampled by nvidia-smi every 100 ms
+    while ``fn`` runs back to back for about ``seconds``."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=30)
+    rows = [re.fullmatch(r"\s*([\d.]+),\s*([\d.]+)\s*", ln) for ln in text.splitlines()]
+    rows = [(float(m.group(1)), float(m.group(2))) for m in rows if m]
+    check(bool(rows), f"nvidia-smi gave no clock or power samples: {text[:200]!r}")
+    return {
+        "samples": len(rows),
+        "sm_clock_mhz_median": statistics.median(r[0] for r in rows),
+        "sm_clock_mhz_min": min(r[0] for r in rows),
+        "power_w_max": max(r[1] for r in rows),
+    }
 
 
 def check_topk(s, i, rs, ri, tol: float, what: str) -> float:
@@ -138,25 +218,43 @@ def kernel_phase(device):
                 bool((s[:, n:] == st.UNFILLED_SCORE).all() and (i[:, n:] == 0).all()),
                 "unfilled slots must hold (-1e30, 0)",
             )
-        line = {"B": b, "N": n, "D": d, "k": k, "max_abs_err": err}
+        p = st.plan(b, n, k, torch.cuda.get_device_properties(device).multi_processor_count)
+        line = {
+            "B": b, "N": n, "D": d, "k": k, "max_abs_err": err,
+            "plan": {f: getattr(p, f) for f in ("width", "groups", "n_split")},
+        }
         if b * n >= 10**6:
             qn = torch.nn.functional.normalize(q, dim=1)
             gn = torch.nn.functional.normalize(g, dim=1)
-            line["ms"] = cuda_ms(lambda: st.stream_topk(q, g, k), 10)
+            kernel = lambda: st.stream_topk(q, g, k)  # noqa: E731
+            library = lambda: torch.topk(qn @ gn.T, k)  # noqa: E731
+            fns = {"kernel": kernel, "library": library}
+            times = {"kernel": [], "library": []}
+            for _ in range(TIMING_ROUNDS):
+                for name in ("library", "kernel", "kernel", "library"):
+                    times[name].append(cuda_ms(fns[name], 10))
+            line["ms"] = statistics.median(times["kernel"])
+            line["library_ms"] = statistics.median(times["library"])
+            line["ms_samples"] = times["kernel"]
+            line["library_ms_samples"] = times["library"]
             line["plain_ms"] = cuda_ms(lambda: st.stream_topk_reference(q, g, k), 3, 1)
-            line["library_ms"] = cuda_ms(lambda: torch.topk(qn @ gn.T, k), 10)
+            line["host_us_per_call"] = host_us(kernel)
+            line["device_us"] = device_us(kernel, STREAM_TOPK_KERNELS)
             bytes_moved = (n * d + b * d) * 4 + b * k * 8
-            flops = 2 * b * n * d + 2 * (n + b) * d
             line["bound_bytes_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
-            line["bound_ops_ms"] = flops / FP32_FLOPS_PER_S * 1e3
+            line["bound_ops_ms"] = 3 * 2 * b * n * d / TF32_FLOPS_PER_S * 1e3
             line["bound_ms"] = max(line["bound_bytes_ms"], line["bound_ops_ms"])
             line["bound_by"] = (
                 "bytes" if line["bound_bytes_ms"] >= line["bound_ops_ms"] else "operations"
             )
+            line["bound_fp32_simt_ms"] = max(
+                line["bound_bytes_ms"], 2 * b * n * d / FP32_FLOPS_PER_S * 1e3
+            )
             if main is None:
                 main = line
+                line["under_load"] = clocks_under_load(kernel)
         print("stream_topk", json.dumps(line), flush=True)
-        del q, g
+        q = g = qn = gn = kernel = library = None  # free this case's gallery
     torch.cuda.empty_cache()
     return max_err, main
 
@@ -315,6 +413,7 @@ def main() -> int:
 
     kernels = [{
         "name": "stream_topk",
+        "design": DESIGN,
         "route": "cuda",
         "source": "facerecognition_tpu_torch/csrc/stream_topk.cu",
         "replaces": "facerecognition_tpu/ops/pallas_topk.py:34",

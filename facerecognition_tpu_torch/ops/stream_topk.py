@@ -4,9 +4,10 @@ Counterpart of ``facerecognition_tpu/ops/pallas_topk.py``
 (``pallas_cosine_topk``): queries and gallery rows are L2-normalised and the
 k best gallery rows per query are returned, scores descending with ties to
 the lowest index, without the (B, N) score matrix ever reaching device
-memory. The queries are normalised here; the kernel divides each score by
-its gallery row's norm, which it sums while the row streams through, so the
-gallery is read once and not copied.
+memory. The kernel's prologue normalises the queries; its main pass divides
+each score by its gallery row's norm, which it sums while the row streams
+through, so the gallery is read once and not copied. The work split is
+planned here (``plan``) and passed to the kernel.
 
 A tensor on the CPU takes the plain version, ``stream_topk_reference``. A
 CUDA tensor launches the kernel or raises; nothing falls back.
@@ -15,6 +16,8 @@ CUDA tensor launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -28,17 +31,59 @@ MAX_K = 32
 UNFILLED_SCORE = -1e30
 UNFILLED_INDEX = 0
 
-#: Kernel launches of ``stream_topk`` (one per call on a CUDA tensor).
+#: Calls of ``stream_topk`` on a CUDA tensor. Each call launches three
+#: kernels on the caller's stream: ``split_queries``, ``topk_partial`` and
+#: ``topk_merge``.
 launches = _build.LaunchCounter()
+
+# The kernel's tiling (csrc/stream_topk.cu): a block's two consumer
+# warpgroups take 64 gallery rows each of a 128-row tile; the queries are
+# cut into groups of one of these widths. The kernel itself chooses its
+# ring's depth from the shared memory each width takes.
+TILE_ROWS = 128
+CONSUMERS = 2
+QUERY_WIDTHS = (8, 16, 32, 64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call is cut: the grid is (n_split, groups)."""
+
+    width: int  # queries per group (the wgmma N), padded with zero rows
+    groups: int  # query groups
+    n_split: int  # contiguous runs of gallery rows, one block each per group
+    rows_per_split: int  # a multiple of TILE_ROWS
+    n_cand: int  # candidates per query pass 1 writes and pass 2 reads
+
+
+def _list_len(k: int) -> int:
+    return 8 if k <= 8 else 16 if k <= 16 else 32
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, n: int, k: int, sm_count: int) -> Plan:
+    """Cut B queries x N gallery rows for ``sm_count`` SMs: about one block
+    per SM, each over whole 128-row tiles. The widest query group shrinks as
+    k grows, so the accumulators and the top-k lists fit the registers."""
+    if b < 1 or n < 1 or not 1 <= k <= MAX_K or sm_count < 1:
+        raise ValueError(f"stream_topk cannot plan B={b}, N={n}, k={k}, SMs={sm_count}")
+    widest = {8: 128, 16: 64, 32: 32}[_list_len(k)]
+    groups = -(-b // widest)
+    per_group = -(-b // groups)
+    width = next(w for w in QUERY_WIDTHS if w >= per_group)
+    n_tiles = -(-n // TILE_ROWS)
+    split = max(1, min(n_tiles, -(-sm_count // groups)))
+    rows_per_split = -(-n_tiles // split) * TILE_ROWS
+    n_split = -(-n // rows_per_split)
+    return Plan(width, groups, n_split, rows_per_split, n_split * CONSUMERS * k)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("stream_topk")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.stream_topk_plan.argtypes = [i, i, i, i, ip, ip, ip]
-    lib.stream_topk_plan.restype = i
-    lib.stream_topk_launch.argtypes = [ptr, ptr, i, i, i, i, i, i, ptr, ptr, ptr, ptr, i, ptr]
+    lib.stream_topk_launch.argtypes = [
+        ptr, ptr, i, i, i, i, i, i, i, i, i, ptr, ptr, ptr, ptr, ptr, i, ptr,
+    ]
     lib.stream_topk_launch.restype = i
     return lib
 
@@ -105,26 +150,26 @@ def stream_topk(
     device = gallery.device
     b, d = queries.shape
     n = gallery.shape[0]
-    q = l2_normalize(queries).contiguous()
     lib = _library()
-    n_split, rows_per_split, n_cand = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    if lib.stream_topk_plan(
-        b, n, k, sm_count,
-        ctypes.byref(n_split), ctypes.byref(rows_per_split), ctypes.byref(n_cand),
-    ):
-        raise ValueError(f"stream_topk cannot plan B={b}, N={n}, k={k}")
-    cand_s = torch.empty((b, n_cand.value), dtype=torch.float32, device=device)
-    cand_i = torch.empty((b, n_cand.value), dtype=torch.int32, device=device)
+    p = plan(b, n, k, torch.cuda.get_device_properties(device).multi_processor_count)
+    # one scratch: the split queries, then the candidates' scores and indices
+    q_elems, c_elems = 2 * p.groups * p.width * d, b * p.n_cand
+    scratch = torch.empty(q_elems + 2 * c_elems, dtype=torch.float32, device=device)
+    cand_s = scratch[q_elems:q_elems + c_elems]
+    cand_i = scratch[q_elems + c_elems:].view(torch.int32)
     out_s = torch.empty((b, k), dtype=torch.float32, device=device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.stream_topk_launch(
-        q.data_ptr(), gallery.data_ptr(), b, n, d, k,
-        n_split.value, rows_per_split.value,
-        cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        device.index, stream,
+        queries.data_ptr(), gallery.data_ptr(), b, n, d, k,
+        p.width, p.groups, p.n_split, p.rows_per_split, p.n_cand,
+        scratch.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), device.index, stream,
     )
+    if err == -1:
+        raise ValueError(f"stream_topk kernel refused the plan {p}")
+    if err == -2:
+        raise RuntimeError("stream_topk: the driver could not encode the TMA tensor maps")
     if err:
         raise RuntimeError(f"stream_topk kernel launch failed: CUDA error {err}")
     launches.add()

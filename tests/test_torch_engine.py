@@ -121,7 +121,13 @@ def test_micro_batcher_returns_the_direct_answers(scene, port_stream):
     frames = scene[0]
     requests = [frames[i % len(frames)] for i in range(6)]
     direct = port_stream.fused_recognize_frames(np.stack(requests), k=5)
-    batcher = MicroBatcher(port_stream, frame_size=frames.shape[1:3], k=5, max_delay_ms=20)
+    # One batch of all six, as the direct call: a batch of one runs other
+    # convolution kernels and its embeddings differ in the fifth decimal.
+    # The window is long and max_batch closes it as soon as the sixth arrives.
+    batcher = MicroBatcher(
+        port_stream, frame_size=frames.shape[1:3], k=5,
+        max_batch=len(requests), max_delay_ms=60_000,
+    )
     results = [None] * len(requests)
 
     def client(i):
@@ -145,7 +151,7 @@ def test_micro_batcher_returns_the_direct_answers(scene, port_stream):
         np.testing.assert_allclose(res["bbox"], ref["bbox"], atol=1e-3)
         np.testing.assert_allclose(res["embedding"], ref["embedding"], atol=1e-5)
     stats = batcher.stats()
-    assert stats["requests"] == 6 and stats["batches"] >= 1
+    assert stats["requests"] == 6 and stats["batches"] == 1
 
 
 def test_micro_batcher_resizes_like_cv2(scene):
