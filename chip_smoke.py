@@ -8,22 +8,39 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Phases, each printing its wall seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc builds every kernel of the path from ``csrc/`` (seconds and
-   the ptxas register / shared-memory / spill lines).
-3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the serving match shapes, with planted duplicate rows (the lowest
-   index must win); kernel, plain and library times by CUDA events, the
-   kernel and the library timed in turns (library, kernel, kernel, library)
-   and reported as medians; the host time of a call, the device time of
-   each of the wrapper's kernels from the profiler's trace, and for the
-   first case the SM clock and power draw under load (nvidia-smi).
-4. serving: the shipped detector and ArcFace assets on the card, a
+2. build: nvcc builds every kernel of the path from ``csrc/``, one process
+   per source, all started together (seconds and the ptxas register /
+   shared-memory / spill lines).
+3. kernels: ``stream_topk`` against its plain PyTorch version on the card,
+   at the serving match shapes, with planted duplicate rows (the lowest
+   index must win), a NaN query and a NaN gallery row, and a gallery above
+   4.2M rows; kernel, plain and library times by CUDA events, the kernel and
+   the library timed in turns (library, kernel, kernel, library) and
+   reported as medians; the host time of a call, the device time of each of
+   the wrapper's kernels from the profiler's trace, and for the first case
+   the SM clock and power draw under load (nvidia-smi).
+4. warp: ``warp_sample`` against the two-pass plain version, uint8 frames,
+   ``fast`` on and off: the resize 256²→128² and the align warp 256²→112²
+   at B = 128, the crowd window warp at B = 32 x M = 4, the repeat path at
+   160² frames; max and mean |Δ| in levels, kernel / plain / library times
+   (``interpolate`` for the resize at ``fast=False``), the bound, and the
+   kernel's device time from the profiler's trace.
+5. detect_post: the kernel against ``detect_faces_batch`` at B = 128, M = 4
+   and 16, on raw outputs with saturated-sigmoid ties: validity equal,
+   boxes, landmarks and scores close; kernel and plain times.
+6. serving: the shipped detector and ArcFace assets on the card, a
    100,000-row gallery with each frame's own embedding planted, and 16
    requests through ``MicroBatcher`` from 4 threads with the streaming
-   kernel as the matcher. Every top-1 must be its planted row; the same
-   frames through the port on the CPU (plain versions) must agree.
+   kernel as the matcher, one face per frame. Every top-1 must be its
+   planted row; the same frames through the port on the CPU (plain
+   versions) must agree.
+7. crowd: the same through ``MicroBatcher(max_faces=4)`` (the window path),
+   each valid slot's own embedding planted; every planted slot's top-1 is
+   its row (or ties it within 1e-6), and the CPU agrees.
 
-It prints one ``{"kernels": [...]}`` line, then as its last line
+Phases 6 and 7 are the main paths: every kernel counter is set to 0 just
+before each and read just after, and each kernel of the path must have
+launched. It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit code
 is not 0; without a CUDA card it exits 2 before printing any result. A
 watchdog ends the run, with a stack dump, after 900 s.
@@ -64,6 +81,8 @@ KERNEL_CASES = (  # (B, N, D, k)
     (3, 5_000, 512, 32),
     (4, 3, 512, 5),
 )
+NAN_CASE = (4, 100_000, 512, 5)  # query 1 holds a NaN, gallery row 7 is NaN
+LARGE_CASE = (4, 4_300_000, 512, 5)  # above 4,194,304 rows: offsets past 2^31 elements
 # The three kernels one stream_topk call launches.
 STREAM_TOPK_KERNELS = ("split_queries", "topk_partial", "topk_merge")
 TIMING_ROUNDS = 2  # each round times library, kernel, kernel, library
@@ -71,6 +90,19 @@ GALLERY_ROWS = 100_000
 N_FRAMES = 16
 N_CLIENTS = 4
 FRAME = (256, 256)
+CROWD_FACES = 4
+WARP_B = 128
+# (name, frame side, frames, slots per frame, mode): the shapes the paths give
+# warp_sample. "resize" feeds the detector, "align" the one-face path, "window"
+# the crowd path at frames above 160², "repeat" the crowd path at 160² or less.
+WARP_CASES = (
+    ("resize", 256, WARP_B, 1, "resize"),
+    ("align", 256, WARP_B, 1, "align"),
+    ("window", 256, 32, CROWD_FACES, "window"),
+    ("repeat", 160, 32, CROWD_FACES, "align"),
+)
+DETECT_CASES = ((128, 4), (128, 16))  # (B, M)
+PROFILE_BATCH = 128  # the fused call profiled at the serving batch
 
 
 class CheckFailed(RuntimeError):
@@ -118,10 +150,11 @@ def host_us(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def device_us(fn, kernels, calls: int = 5) -> dict:
-    """Device microseconds per call of each of ``kernels``, the names of the
-    kernels that ``fn`` launches, from the profiler's CUDA trace. Fails if
-    the trace lacks one of them."""
+def device_us(fn, kernels=None, calls: int = 5) -> dict:
+    """Device microseconds per call of each kernel ``fn`` launches, by name,
+    from the profiler's CUDA trace. Given ``kernels`` (base names), only
+    those, and it fails unless the trace holds each of them; else every
+    kernel, and it fails if the trace holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,12 +164,21 @@ def device_us(fn, kernels, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.device_time_total <= 0:
+            continue
         name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", ev.key)
-        base = name.split("<")[0]
-        if ev.device_time_total > 0 and base in kernels:
-            out[name] = out.get(name, 0.0) + ev.device_time_total / calls
-    found = {name.split("<")[0] for name in out}
-    check(found == set(kernels), f"profiler trace holds {sorted(found)}, not {list(kernels)}")
+        if kernels is None:
+            name = name[:60]
+        elif name.split("<")[0] not in kernels:
+            continue
+        out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+    if kernels is None:
+        check(bool(out), "the profiler's trace holds no device time")
+    else:
+        found = {name.split("<")[0] for name in out}
+        check(found == set(kernels), f"profiler trace holds {sorted(found)}, not {list(kernels)}")
     return out
 
 
@@ -256,10 +298,262 @@ def kernel_phase(device):
         print("stream_topk", json.dumps(line), flush=True)
         q = g = qn = gn = kernel = library = None  # free this case's gallery
     torch.cuda.empty_cache()
+    nan_case(st, gen, device)
+    max_err = max(max_err, large_case(st, gen, device))
     return max_err, main
 
 
-def serving_phase(card: str):
+def nan_case(st, gen, device) -> None:
+    """A NaN query and a NaN gallery row rank as the plain version ranks
+    them: NaN above +inf, NaNs lowest index first."""
+    import torch
+
+    b, n, d, k = NAN_CASE
+    q = torch.randn(b, d, generator=gen, device=device)
+    g = torch.randn(n, d, generator=gen, device=device)
+    q[1, 3] = float("nan")
+    g[7] = float("nan")
+    s, i = st.stream_topk(q, g, k)
+    torch.cuda.synchronize()
+    rs, ri = st.stream_topk_reference(q, g, k)
+    check(torch.equal(i, ri), f"NaN case: indices {i.tolist()} vs plain {ri.tolist()}")
+    check(i[1].tolist() == list(range(k)), f"NaN query: indices {i[1].tolist()}")
+    check(bool((i[[0, 2, 3], 0] == 7).all()), "the NaN gallery row must rank first")
+    nan = torch.isnan(rs)
+    check(torch.equal(torch.isnan(s), nan), "NaN scores differ from plain")
+    err = (s[~nan] - rs[~nan]).abs().max().item()
+    check(err <= 1e-5, f"NaN case: max |score - plain| {err}")
+    print("stream_topk", json.dumps({"B": b, "N": n, "D": d, "k": k, "nan": True,
+                                     "max_abs_err": err}), flush=True)
+
+
+def large_case(st, gen, device) -> float:
+    """A gallery above 4,194,304 rows of 512: element offsets past 2^31."""
+    import torch
+
+    b, n, d, k = LARGE_CASE
+    q = torch.randn(b, d, generator=gen, device=device)
+    g = torch.randn(n, d, generator=gen, device=device)
+    lo, hi = 123, n - 1  # a planted pair either side of the old cap
+    g[hi] = g[lo]
+    q[0] = g[lo] * 3.0
+    q[1] = g[n - 5]
+    s, i = st.stream_topk(q, g, k)
+    torch.cuda.synchronize()
+    rs, ri = st.stream_topk_reference(q, g, k)
+    err = check_topk(s, i, rs, ri, 1e-5, f"stream_topk B={b} N={n} D={d} k={k}")
+    check(i[0, :2].tolist() == [lo, hi], f"planted duplicates came back as {i[0, :2].tolist()}")
+    check(i[1, 0].item() == n - 5, f"a row past 2^31 / D came back as {i[1, 0].item()}")
+    ms = cuda_ms(lambda: st.stream_topk(q, g, k), 5)
+    print("stream_topk", json.dumps({"B": b, "N": n, "D": d, "k": k, "gallery_gb": n * d * 4 / 1e9,
+                                     "max_abs_err": err, "ms": ms}), flush=True)
+    del q, g
+    torch.cuda.empty_cache()
+    return err
+
+
+def touched_pixels(wm, frames, case, lms) -> int:
+    """Distinct source pixels (frame, y, x) the case's taps reach, from the
+    plain version's own positions: the pixels the warp must read once."""
+    import torch
+
+    name, _, b, m, mode = case
+    _, h, w, _ = frames.shape
+    dev = frames.device
+    if mode == "resize":
+        ys = wm.resize_positions(h, 128, dev).floor().long()
+        xs = wm.resize_positions(w, 128, dev).floor().long()
+        rows = torch.unique(torch.cat([ys, ys + 1]).clamp(0, h - 1)).numel()
+        cols = torch.unique(torch.cat([xs, xs + 1]).clamp(0, w - 1)).numel()
+        return b * rows * cols
+    if mode == "window":
+        ms, origin, win = wm.window_slots(lms, h, w, 112, 160)
+        region = (win, win)
+    else:
+        ms = wm.align_matrices(lms.reshape(-1, 5, 2), 112)
+        origin = torch.zeros((b * m, 2), dtype=torch.long, device=dev)
+        region = (h, w)
+    m00, m01, m02, aa, bb, cc = wm.warp_coefficients(wm.invert_affine(ms)).unbind(1)
+    ii = torch.arange(112, device=dev, dtype=torch.float32)[None, :, None]
+    jj = torch.arange(112, device=dev, dtype=torch.float32)[None, None, :]
+    xs = m00[:, None, None] * jj + m01[:, None, None] * ii + m02[:, None, None]
+    keys = []
+    frame_of = torch.arange(b, device=dev).repeat_interleave(m)[:, None, None]
+    for t in (0, 1):
+        x = xs.floor() + t
+        y0 = (aa[:, None, None] * ii + bb[:, None, None] * x + cc[:, None, None]).floor()
+        for u in (0, 1):
+            y = y0 + u
+            ok = (x >= 0) & (x < region[1]) & (y >= 0) & (y < region[0])
+            gy = (y + origin[:, 1, None, None]).long()
+            gx = (x + origin[:, 0, None, None]).long()
+            keys.append(((frame_of * h + gy) * w + gx)[ok])
+    return torch.unique(torch.cat(keys)).numel()
+
+
+def warp_phase(device):
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.ops import warp_mxu as wm
+    from facerecognition_tpu_torch.ops import warp_sample as ws
+
+    rng = np.random.default_rng(SEED)
+    template = wm.ARCFACE_TEMPLATE - wm.ARCFACE_TEMPLATE.mean(0)
+    lines = {}
+    for case in WARP_CASES:
+        name, side, b, m, mode = case
+        coarse = rng.integers(0, 256, (b, side // 8, side // 8, 3))
+        frames = torch.as_tensor(
+            np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2).astype(np.uint8), device=device
+        )
+        # faces of 0.2-0.34 of the frame, rotated up to 0.4 rad, anywhere in it
+        ang = rng.uniform(-0.4, 0.4, (b, m))
+        rot = np.stack([np.stack([np.cos(ang), -np.sin(ang)], -1),
+                        np.stack([np.sin(ang), np.cos(ang)], -1)], -2)
+        scale = rng.uniform(0.2, 0.34, (b, m, 1, 1)) * side / 40.0
+        lm = np.einsum("bmij,nj->bmni", rot, template) * scale
+        lm = lm + rng.uniform(0.2 * side, 0.8 * side, (b, m, 1, 2))
+        lms = torch.as_tensor(lm.astype(np.float32), device=device)
+        for fast in (True, False):
+            if mode == "resize":
+                kernel = lambda: ws.bilinear_resize(frames, 128, 128, fast)  # noqa: E731
+                plain = lambda: wm.bilinear_resize_mxu_batch(frames, 128, 128, fast)  # noqa: E731
+            elif mode == "window":
+                kernel = lambda: ws.align_crop_window(frames, lms, 112, 160, fast)  # noqa: E731
+                plain = lambda: wm.align_crop_mxu_window(frames, lms, 112, 160, fast)  # noqa: E731
+            else:
+                kernel = lambda: ws.align_crop(frames, lms, 112, fast)  # noqa: E731
+                plain = lambda: wm.align_crop_mxu_batch(  # noqa: E731
+                    frames.repeat_interleave(m, 0), lms.reshape(-1, 5, 2), 112, fast
+                )
+            with strict_fp32():
+                got = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                diff = (got - ref).abs()
+                line = {"case": name, "frames": b, "side": side, "slots": b * m, "fast": fast,
+                        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item()}
+                check(line["max_abs_err"] <= (0.0 if fast else 1e-3),
+                      f"warp_sample {name} fast={fast}: max |Δ| {line['max_abs_err']} levels")
+                line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
+                line["plain_ms"] = cuda_ms(plain, 3, 1)
+                line["library_ms"] = None
+                if mode == "resize" and not fast:
+                    x = frames.permute(0, 3, 1, 2).float().contiguous()
+                    interp = lambda: torch.nn.functional.interpolate(  # noqa: E731
+                        x, size=(128, 128), mode="bilinear", align_corners=False, antialias=False
+                    )
+                    lib_diff = (interp().permute(0, 2, 3, 1) - got).abs().max().item()
+                    check(lib_diff <= 1e-3, f"interpolate differs from the resize by {lib_diff}")
+                    line["library_max_abs_diff"] = lib_diff
+                    line["library_ms"] = statistics.median(cuda_ms(interp, 20) for _ in range(3))
+                    line["library_device_us"] = sum(device_us(interp, calls=3).values())
+                    x = None
+                moved = got.numel() * 4 + touched_pixels(wm, frames, case, lms) * 3  # uint8 in
+                line["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+                line["bound_by"] = "bytes"
+                line["device_us"] = device_us(kernel, ("warp_sample",))
+                line["plain_device_us"] = sum(device_us(plain, calls=3).values())
+            print("warp_sample", json.dumps(line), flush=True)
+            lines[(name, fast)] = line
+    torch.cuda.empty_cache()
+    return lines
+
+
+def detect_phase(device):
+    import torch
+
+    from facerecognition_tpu_torch.models.detector_net import anchor_centers, detect_faces_batch
+    from facerecognition_tpu_torch.ops import detect_post as dp
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    anchors = torch.as_tensor(anchor_centers(128), device=device)
+    lines = {}
+    for b, m in DETECT_CASES:
+        raw = torch.randn(b, anchors.shape[0], 15, generator=gen, device=device) * 2.0
+        raw[..., 0] *= 4.0
+        raw[: b // 2, 40:90, 0] = 25.0  # saturated sigmoids: ties to the lowest anchor
+        kernel = lambda: dp.detect_post(raw, anchors, 0.3, m)  # noqa: E731
+        plain = lambda: detect_faces_batch(raw, anchors, 0.3, m)  # noqa: E731
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(torch.equal(got[3], ref[3]), f"detect_post B={b} M={m}: validity differs")
+        errs = [(x - y).abs().max().item() for x, y in zip(got[:3], ref[:3])]
+        check(max(errs) <= 1e-4, f"detect_post B={b} M={m}: boxes/landmarks/scores differ by {errs}")
+        line = {"B": b, "M": m, "valid_slots": int(got[3].sum()), "max_abs_err": max(errs),
+                "ms": statistics.median(cuda_ms(kernel, 20) for _ in range(3)),
+                "plain_ms": cuda_ms(plain, 3, 1), "library_ms": None}
+        line["bytes"] = detect_post_bytes(raw, anchors, 0.3, m, got)
+        line["bound_ms"] = line["bytes"] / HBM_BYTES_PER_S * 1e3
+        line["bound_by"] = "bytes"
+        line["device_us"] = device_us(kernel, ("detect_post",))
+        line["plain_device_us"] = sum(device_us(plain, calls=3).values())
+        print("detect_post", json.dumps(line), flush=True)
+        lines[(b, m)] = line
+    # The shared-memory layout lives only in the kernel: it refuses a frame
+    # whose sort does not fit a block, and the wrapper raises.
+    big = torch.zeros(1, 40000, 15, device=device)
+    try:
+        dp.detect_post(big, torch.zeros(40000, 3, device=device), 0.3, 16)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("refused" in refused, "detect_post did not refuse 40000 anchors in one block")
+    print(f"detect_post refuses 40000 anchors: {refused}", flush=True)
+    return lines
+
+
+def detect_post_bytes(raw, anchors, iou_threshold: float, max_faces: int, outs) -> int:
+    """Bytes ``detect_post`` must move on this run's data. The card reads
+    device memory in 32-byte sectors and a raw row is 60 bytes, so each
+    anchor's logit costs a sector of its own. Counted once each: the sectors
+    that hold every anchor's logit, the K candidates' box fields and the M
+    picks' landmark fields (an invalid slot reads candidate 0's, as the
+    kernel does); the sectors of the anchor rows those use; the outputs.
+    ``raw`` starts on a sector, as the caching allocator places it."""
+    import torch
+
+    from facerecognition_tpu_torch.models.detector_net import decode_predictions, prefilter_size
+    from facerecognition_tpu_torch.ops.matcher import topk_lowest_index
+    from facerecognition_tpu_torch.ops.nms import nms_padded
+
+    b, a, width = raw.shape
+    dev = raw.device
+    scores, boxes, _ = decode_predictions(raw, anchors)
+    top_s, top_i = topk_lowest_index(scores, prefilter_size(a, max_faces))
+    top_i = top_i.long()
+    top_boxes = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
+    keep, _ = nms_padded(top_boxes, top_s, iou_threshold, max_faces)
+    picks = torch.gather(top_i, 1, keep.clamp(min=0).long())
+    frame_row = torch.arange(b, device=dev)[:, None] * a
+
+    def sectors(anchor, fields):
+        fields = torch.tensor(fields, device=dev)
+        return ((((frame_row + anchor)[..., None] * width + fields) * 4) // 32).flatten()
+
+    every = torch.arange(a, device=dev).expand(b, -1)
+    raw_sectors = torch.cat(
+        [sectors(every, [0]), sectors(top_i, range(1, 5)), sectors(picks, range(5, 15))]
+    ).unique().numel()
+    used = torch.cat([top_i, picks], 1).unique()
+    anchor_sectors = (((used[:, None] * 3 + torch.arange(3, device=dev)) * 4) // 32).unique().numel()
+    return (raw_sectors + anchor_sectors) * 32 + sum(t.numel() * t.element_size() for t in outs)
+
+
+def _counters():
+    from facerecognition_tpu_torch.ops import detect_post, stream_topk, warp_sample
+
+    return {"stream_topk": stream_topk.launches, "warp_sample": warp_sample.launches,
+            "detect_post": detect_post.launches}
+
+
+def serving_phase(card: str, max_faces: int) -> dict:
+    """16 requests through ``MicroBatcher(max_faces=...)`` on the card, each
+    detected face's own embedding planted in a 100k gallery; the same frames
+    through the port on the CPU must agree. Returns the kernel launches."""
     import numpy as np
 
     from facerecognition_tpu_torch.apps.serving import MicroBatcher
@@ -268,17 +562,15 @@ def serving_phase(card: str):
         default_arcface_checkpoint,
         load_arcface_model,
     )
-    from facerecognition_tpu_torch.ops import stream_topk as st
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + max_faces)
     # Smooth random frames: noise upsampled 16x, so the warp and the
     # detector see structure rather than pixel noise.
     coarse = rng.integers(0, 256, (N_FRAMES, FRAME[0] // 16, FRAME[1] // 16, 3))
     frames = np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2).astype(np.uint8)
     rows = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
     names = [f"id{r:06d}" for r in range(GALLERY_ROWS)]
-    planted = [int(r) for r in rng.choice(GALLERY_ROWS, N_FRAMES, replace=False)]
 
     def build_engine(device):
         detector = FaceDetector(confidence_threshold=0.0, min_face_size=0, device=device)
@@ -292,12 +584,15 @@ def serving_phase(card: str):
     t0 = time.perf_counter()
     engine = build_engine(None)  # the entry points' default device: the card
     check(engine.device.type == "cuda", f"engine on {engine.device}")
-    first = engine.fused_recognize_frames(frames)
-    own = np.stack([r["embedding"] for r in first])
-    engine.gallery.add_many([names[r] for r in planted], own)
-    print(f"engine ready, gallery planted: {time.perf_counter() - t0:.3f} s", flush=True)
+    first = engine.fused_recognize_frames(frames, max_faces=max_faces)
+    faces = [(f, j) for f in range(N_FRAMES) for j in range(len(first[f]["faces"]))]
+    check(len(faces) >= N_FRAMES, f"only {len(faces)} faces in {N_FRAMES} frames")
+    planted = {fj: int(r) for fj, r in zip(faces, rng.choice(GALLERY_ROWS, len(faces), replace=False))}
+    own = np.stack([first[f]["faces"][j]["embedding"] for f, j in faces])
+    engine.gallery.add_many([names[planted[fj]] for fj in faces], own)
+    print(f"engine ready, {len(faces)} faces planted: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    batcher = MicroBatcher(engine, frame_size=FRAME, max_delay_ms=5)
+    batcher = MicroBatcher(engine, frame_size=FRAME, max_faces=max_faces, max_delay_ms=5)
     results: dict[int, dict] = {}
     latencies: list[float] = []
     errors: list[BaseException] = []
@@ -316,7 +611,9 @@ def serving_phase(card: str):
                 results[f] = res
                 latencies.append(time.perf_counter() - t)
 
-    st.launches.reset()
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
     threads = [
         threading.Thread(target=client, args=(range(c, N_FRAMES, N_CLIENTS),))
         for c in range(N_CLIENTS)
@@ -330,50 +627,89 @@ def serving_phase(card: str):
     finally:
         batcher.close()
     serve_s = time.perf_counter() - t_serve
-    launches = st.launches.count
+    launches = {name: c.count for name, c in counters.items()}
     check(not any(t.is_alive() for t in threads), "a client thread did not finish")
     if errors:
         raise errors[0]
     check(len(results) == N_FRAMES, f"{len(results)} of {N_FRAMES} answers")
-    check(launches > 0, "the serving path launched no stream_topk kernel")
-    for f in range(N_FRAMES):
-        name, score = results[f]["top_k"][0]
+    path = ("stream_topk", "warp_sample") + (("detect_post",) if max_faces > 1 else ())
+    for name in path:
+        check(launches[name] > 0, f"max_faces={max_faces}: the path launched no {name} kernel")
+    for f, j in faces:
+        check(j < len(results[f]["faces"]), f"frame {f}: face {j} missing when served")
+        top = results[f]["faces"][j]["top_k"]
+        want = names[planted[(f, j)]]
+        row_score = dict(top).get(want)
         check(
-            name == names[planted[f]] and score > 0.99,
-            f"frame {f}: top-1 {name} {score}, planted {names[planted[f]]}",
+            top[0][0] == want or (row_score is not None and top[0][1] - row_score <= 1e-6),
+            f"frame {f} face {j}: top-1 {top[0]}, planted {want}",
         )
+        check(top[0][1] > 0.99, f"frame {f} face {j}: top-1 score {top[0][1]}")
     lat = sorted(latencies)
     stats = batcher.stats()
     print(
         "serving", json.dumps({
-            "card": card, "requests": N_FRAMES, "clients": N_CLIENTS,
-            "batches": stats["batches"], "wall_s": serve_s,
+            "card": card, "max_faces": max_faces, "requests": N_FRAMES, "faces": len(faces),
+            "clients": N_CLIENTS, "batches": stats["batches"], "wall_s": serve_s,
             "latency_ms_p50": lat[(len(lat) - 1) // 2] * 1e3,
             "latency_ms_p99": lat[int(0.99 * (len(lat) - 1))] * 1e3,
-            "stream_topk_launches": launches,
+            "launches": launches,
         }),
         flush=True,
     )
 
     t0 = time.perf_counter()
     cpu_engine = build_engine("cpu")
-    cpu_engine.gallery.add_many([names[r] for r in planted], own)
-    cpu = cpu_engine.fused_recognize_frames(frames)
+    cpu_engine.gallery.add_many([names[planted[fj]] for fj in faces], own)
+    cpu = cpu_engine.fused_recognize_frames(frames, max_faces=max_faces)
     worst = 1.0
-    for f in range(N_FRAMES):
-        e_gpu, e_cpu = results[f]["embedding"], cpu[f]["embedding"]
+    for f, j in faces:
+        check(j < len(cpu[f]["faces"]), f"frame {f}: face {j} missing on the CPU")
+        card_face, cpu_face = results[f]["faces"][j], cpu[f]["faces"][j]
+        e_gpu, e_cpu = card_face["embedding"], cpu_face["embedding"]
         cos = float(e_gpu @ e_cpu / (np.linalg.norm(e_gpu) * np.linalg.norm(e_cpu)))
         worst = min(worst, cos)
-        check(cos > 0.999, f"frame {f}: card vs CPU embedding cosine {cos}")
+        check(cos > 0.999, f"frame {f} face {j}: card vs CPU embedding cosine {cos}")
         check(
-            results[f]["top_k"][0][0] == cpu[f]["top_k"][0][0],
-            f"frame {f}: card top-1 {results[f]['top_k'][0]} vs CPU {cpu[f]['top_k'][0]}",
+            card_face["top_k"][0][0] == cpu_face["top_k"][0][0],
+            f"frame {f} face {j}: card top-1 {card_face['top_k'][0]} vs CPU {cpu_face['top_k'][0]}",
         )
     print(
         f"cpu plain path agrees: min embedding cosine {worst}, "
         f"{time.perf_counter() - t0:.3f} s", flush=True,
     )
+    fused_profile(engine, np.tile(frames, (PROFILE_BATCH // N_FRAMES, 1, 1, 1)), max_faces)
     return launches
+
+
+def fused_profile(engine, frames, max_faces: int) -> None:
+    """Where one fused call of the serving batch spends device time: every
+    kernel's device µs per call from the profiler's trace, their sum, and
+    the call's wall time (host clock, synchronised)."""
+    import torch
+
+    def call():
+        return engine.fused_recognize_frames(frames, max_faces=max_faces)
+
+    call()  # warm: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    times = device_us(call, calls=3)
+    top = dict(sorted(times.items(), key=lambda kv: -kv[1])[:14])
+    print("fused_profile", json.dumps({
+        "max_faces": max_faces, "batch": len(frames), "wall_ms": wall_ms,
+        "device_ms": sum(times.values()) / 1e3, "kernels": len(times), "top_us": top,
+        "ours_us": {k: v for k, v in times.items()
+                    if k.split("<")[0] in ("warp_sample", "detect_post", "split_queries",
+                                           "topk_partial", "topk_merge")},
+    }), flush=True)
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -396,7 +732,7 @@ def main() -> int:
         print(f"torch {torch.__version__} CUDA {torch.version.cuda}: {card}", flush=True)
 
     with phase("build"):
-        for built in _build.build(["stream_topk"]):
+        for built in _build.build(["stream_topk", "warp_sample", "detect_post"]):
             print(f"{built.name}: nvcc {built.seconds:.2f} s -> {built.path}", flush=True)
             for line in built.log.splitlines():
                 entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -405,26 +741,72 @@ def main() -> int:
                 elif "Used" in line or "spill" in line or "error" in line.lower():
                     print("    " + line.strip(), flush=True)
 
+    device = torch.device("cuda", 0)
     with phase("kernels"):
-        max_err, main_case = kernel_phase(torch.device("cuda", 0))
+        max_err, main_case = kernel_phase(device)
+
+    with phase("warp"):
+        warp = warp_phase(device)
+
+    with phase("detect_post"):
+        detect = detect_phase(device)
 
     with phase("serving"):
-        launches = serving_phase(f"{smi}")
+        one_face = serving_phase(smi, 1)
 
-    kernels = [{
-        "name": "stream_topk",
-        "design": DESIGN,
-        "route": "cuda",
-        "source": "facerecognition_tpu_torch/csrc/stream_topk.cu",
-        "replaces": "facerecognition_tpu/ops/pallas_topk.py:34",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]
+    with phase("crowd"):
+        crowd = serving_phase(smi, CROWD_FACES)
+
+    resize = warp[("resize", False)]
+    post = detect[DETECT_CASES[0]]
+    kernels = [
+        {
+            "name": "stream_topk",
+            "design": DESIGN,
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/stream_topk.cu",
+            "replaces": "facerecognition_tpu/ops/pallas_topk.py:34",
+            "launches": crowd["stream_topk"],
+            "max_abs_err": max_err,
+            "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+        },
+        {
+            "name": "warp_sample",
+            "design": "four-tap direct sampling of the two-pass function",
+            "case": "resize B=128 256x256 -> 128x128, fast=False",
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
+            "replaces": "facerecognition_tpu/ops/warp_mxu.py:57",
+            "launches": crowd["warp_sample"],
+            "max_abs_err": max(line["max_abs_err"] for line in warp.values()),
+            "ms": resize["ms"],
+            "plain_ms": resize["plain_ms"],
+            "bound_ms": resize["bound_ms"],
+            "bound_by": resize["bound_by"],
+            "library_ms": resize["library_ms"],
+        },
+        {
+            "name": "detect_post",
+            "design": "one block per frame: bitonic prefilter, greedy NMS in shared memory",
+            "case": f"B={DETECT_CASES[0][0]} M={DETECT_CASES[0][1]}",
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/detect_post.cu",
+            "replaces": "facerecognition_tpu/models/detector_net.py:200",
+            "launches": crowd["detect_post"],
+            "max_abs_err": max(line["max_abs_err"] for line in detect.values()),
+            "ms": post["ms"],
+            "plain_ms": post["plain_ms"],
+            "bound_ms": post["bound_ms"],
+            "bound_by": post["bound_by"],
+            "library_ms": None,
+        },
+    ]
+    print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
+    print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 compiled for ``sm_90a`` at first use into ``_build/`` (git-ignored) under a
-name keyed by a hash of the source and flags. Nothing here includes
+name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags. Nothing here includes
 PyTorch's headers, so a build takes seconds, not minutes. A missing
 ``nvcc`` or a failed build raises with the compiler's output. The build
 writes to a temporary name and renames it into place, so there is no lock
@@ -65,9 +66,13 @@ def source_path(name: str) -> str:
 
 
 def _target(name: str) -> str:
+    """The library's path, keyed by the source, the shared headers of
+    ``csrc/`` and the flags."""
     digest = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

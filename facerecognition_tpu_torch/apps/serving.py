@@ -1,12 +1,12 @@
-"""Dynamic micro-batching onto the fused one-face serving call.
+"""Dynamic micro-batching onto the fused serving call.
 
 Counterpart of ``facerecognition_tpu/apps/serving.py``: concurrent
 ``submit(frame)`` calls are coalesced into one
 ``RecognitionEngine.fused_recognize_frames`` call per batch, padded to the
 standard bucket sizes. Requests wait at most ``max_delay_ms`` after the first
 arrival; one dispatcher thread owns the device and request threads block on
-an event. Frames are resized on the host with the port's cv2-convention
-``bilinear_resize`` (rounded back to uint8) in place of ``cv2.resize``.
+an event. Frames are resized on the host by ``bilinear_resize_u8``, which
+computes ``cv2.resize(INTER_LINEAR)`` on uint8 bit for bit.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from facerecognition_tpu_torch.ops.image import bilinear_resize
+from facerecognition_tpu_torch.ops.image import bilinear_resize_u8
 
 BUCKETS = (1, 8, 32, 128, 512)
 
@@ -47,7 +47,7 @@ class MicroBatcher:
       engine: a ``RecognitionEngine`` with a detector and non-empty gallery.
       frame_size: every frame is resized on the host to this (H, W).
       k: top-k identities per face.
-      max_faces: faces per frame (only 1 is ported).
+      max_faces: faces per frame; above 1 the engine serves the crowd path.
       max_batch: cap per dispatch (also the largest pad bucket used).
       max_delay_ms: how long the first request of a batch waits for company.
       request_timeout: default ``submit`` wait in seconds.
@@ -132,8 +132,7 @@ class MicroBatcher:
         if frame.dtype != np.uint8:
             frame = np.clip(np.rint(frame), 0, 255).astype(np.uint8)
         if frame.shape[:2] != self._frame_size:
-            resized = bilinear_resize(torch.from_numpy(frame), *self._frame_size)
-            frame = resized.round().clamp(0, 255).to(torch.uint8).numpy()
+            frame = bilinear_resize_u8(torch.from_numpy(frame), *self._frame_size).numpy()
         return frame
 
     def stats(self) -> dict:

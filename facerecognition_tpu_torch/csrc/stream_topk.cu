@@ -41,8 +41,11 @@
 //   pass 2 (topk_merge): one block per query merges the candidates.
 //
 // Order everywhere is (score descending, index ascending), so ties resolve
-// to the lowest gallery row, as lax.top_k does. Indices are int32 end to
-// end. Slots left unfilled (k > N) come out as score -1e30, index 0, as the
+// to the lowest gallery row, as lax.top_k does. Scores are ranked by an int32
+// key of IEEE total order (order_key), so a NaN score ranks above +inf, as in
+// lax.top_k; the lists and the candidates hold keys, and the merge turns the
+// winners back into floats. Indices are int32 end to end; row offsets and the
+// split bounds are 64-bit, so any N below 2^31 rows is taken. Slots left unfilled (k > N) come out as score -1e30, index 0, as the
 // Pallas wrapper clamps them. The gallery is read once and never normalised
 // in device memory. The plan (W, groups, splits) is made by the Python
 // wrapper and passed in; the ring's depth is chosen here, at launch, as the
@@ -67,6 +70,8 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "order_key.cuh"
 
 namespace {
 
@@ -103,20 +108,19 @@ struct Layout {
   __host__ __device__ int bytes() const { return barriers_offset() + 2 * stages * 8 + SMEM_ALIGN; }
 };
 
-__device__ __forceinline__ bool better(float s, int i, float t, int j) {
+__device__ __forceinline__ bool better(int s, int i, int t, int j) {
   return s > t || (s == t && i < j);
 }
 
 // Insert (s, i) into a list kept sorted best first; a full list drops its
 // worst entry. All indices are compile-time, so the list stays in registers.
 template <int KMAX>
-__device__ __forceinline__ void insert(float (&ts)[KMAX], int (&ti)[KMAX],
-                                       float s, int i) {
+__device__ __forceinline__ void insert(int (&ts)[KMAX], int (&ti)[KMAX], int s, int i) {
   if (!better(s, i, ts[KMAX - 1], ti[KMAX - 1])) return;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) {
     if (better(s, i, ts[j], ti[j])) {
-      const float fs = ts[j];
+      const int fs = ts[j];
       const int fi = ti[j];
       ts[j] = s;
       ti[j] = i;
@@ -291,7 +295,7 @@ template <int KMAX, int W>
 __global__ void __launch_bounds__(THREADS, 1)
     topk_partial(const __grid_constant__ CUtensorMap gallery_map,
                  const __grid_constant__ CUtensorMap query_map, int B, int N, int D, int k,
-                 int rows_per_split, int stages, float* __restrict__ cand_s,
+                 int rows_per_split, int stages, int* __restrict__ cand_s,
                  int* __restrict__ cand_i) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((SMEM_ALIGN - (smem_u32(smem_raw) & (SMEM_ALIGN - 1))) &
@@ -302,8 +306,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int split = blockIdx.x;
   const int group = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(N, r_begin + rows_per_split);
+  const long long r_begin = (long long)split * rows_per_split;
+  const long long r_end = min((long long)N, r_begin + rows_per_split);
   const int n_chunks = (D + K_CHUNK - 1) / K_CHUNK;
 
   if (threadIdx.x == 0) {
@@ -320,12 +324,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
-      for (int t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
+      for (long long t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
         for (int c = 0; c < n_chunks; ++c) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* buf = smem + stage * lay.stage_bytes();
           mbar_expect_tx(&full[stage], lay.stage_bytes());
-          tma_load(buf, &gallery_map, &full[stage], c * K_CHUNK, t0);
+          tma_load(buf, &gallery_map, &full[stage], c * K_CHUNK, (int)t0);
           tma_load(buf + GALLERY_TILE_BYTES, &query_map, &full[stage], c * K_CHUNK,
                    2 * group * W);
           tma_load(buf + GALLERY_TILE_BYTES + lay.query_bytes(), &query_map, &full[stage],
@@ -353,16 +357,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int query = group * W + tid;
   const bool owns_query = tid < W && query < B;
 
-  float ts[KMAX];
+  int ts[KMAX];
   int ti[KMAX];
 #pragma unroll
   for (int m = 0; m < KMAX; ++m) {
-    ts[m] = -INFINITY;
+    ts[m] = INT_MIN;
     ti[m] = INT_MAX;
   }
 
   int stage = 0, phase = 0;
-  for (int t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
+  for (long long t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
     float acc[W / 2], total[W / 2];
 #pragma unroll
     for (int j = 0; j < W / 2; ++j) total[j] = acc[j] = 0.f;
@@ -440,10 +444,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     named_barrier(1 + cons, 128);
     if (owns_query) {
-      const int base = t0 + cons * WG_ROWS;
-      const int rows = min(WG_ROWS, r_end - base);
+      const int base = (int)t0 + cons * WG_ROWS;
+      const int rows = (int)min((long long)WG_ROWS, r_end - base);
       for (int r = 0; r < rows; ++r)
-        insert<KMAX>(ts, ti, scores[r * lay.score_stride() + tid], base + r);
+        insert<KMAX>(ts, ti, order_key(scores[r * lay.score_stride() + tid]), base + r);
     }
   }
 
@@ -491,22 +495,22 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 
 template <int KMAX>
 __global__ void __launch_bounds__(MERGE_THREADS)
-    topk_merge(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
+    topk_merge(const int* __restrict__ cand_s, const int* __restrict__ cand_i,
                int n_cand, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
-  __shared__ float ws[MERGE_THREADS / 32];
+  __shared__ int ws[MERGE_THREADS / 32];
   __shared__ int wi[MERGE_THREADS / 32];
-  __shared__ float best_s;
+  __shared__ int best_s;
   __shared__ int best_i;
 
   const int qi = blockIdx.x;
-  const float* cs = cand_s + (size_t)qi * n_cand;
+  const int* cs = cand_s + (size_t)qi * n_cand;
   const int* ci = cand_i + (size_t)qi * n_cand;
 
-  float ts[KMAX];
+  int ts[KMAX];
   int ti[KMAX];
 #pragma unroll
   for (int m = 0; m < KMAX; ++m) {
-    ts[m] = -INFINITY;
+    ts[m] = INT_MIN;
     ti[m] = INT_MAX;
   }
   for (int c = threadIdx.x; c < n_cand; c += MERGE_THREADS) insert<KMAX>(ts, ti, cs[c], ci[c]);
@@ -514,11 +518,11 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   for (int m = 0; m < k; ++m) {
-    float s = ts[0];
+    int s = ts[0];
     int i = ti[0];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, s, off);
+      const int os = __shfl_down_sync(0xffffffffu, s, off);
       const int oi = __shfl_down_sync(0xffffffffu, i, off);
       if (better(os, oi, s, i)) {
         s = os;
@@ -542,7 +546,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
       best_s = s;
       best_i = i;
       const bool filled = i != INT_MAX;
-      out_s[(size_t)qi * k + m] = filled ? s : UNFILLED_SCORE;
+      out_s[(size_t)qi * k + m] = filled ? key_score(s) : UNFILLED_SCORE;
       out_i[(size_t)qi * k + m] = filled ? i : 0;
     }
     __syncthreads();
@@ -553,7 +557,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
         ts[j] = ts[j + 1];
         ti[j] = ti[j + 1];
       }
-      ts[KMAX - 1] = -INFINITY;
+      ts[KMAX - 1] = INT_MIN;
       ti[KMAX - 1] = INT_MAX;
     }
   }
@@ -595,7 +599,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const float* base, int rows, int c
 template <int KMAX, int W>
 cudaError_t launch_partial(const CUtensorMap& gmap, const CUtensorMap& qmap, int B, int N, int D,
                            int k, int groups, int n_split, int rows_per_split,
-                           float* cand_s, int* cand_i, cudaStream_t stream) {
+                           int* cand_s, int* cand_i, cudaStream_t stream) {
   int stages = MAX_STAGES;
   while (stages > MIN_STAGES && Layout{W, stages}.bytes() > MAX_SMEM) --stages;
   const int bytes = Layout{W, stages}.bytes();
@@ -613,7 +617,7 @@ cudaError_t launch_partial(const CUtensorMap& gmap, const CUtensorMap& qmap, int
 template <int KMAX>
 cudaError_t launch_passes(const CUtensorMap& gmap, const CUtensorMap& qmap, int B, int N, int D,
                           int k, int width, int groups, int n_split, int rows_per_split,
-                          int n_cand, float* cand_s, int* cand_i, float* out_s, int* out_i,
+                          int n_cand, int* cand_s, int* cand_i, float* out_s, int* out_i,
                           cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
 #define STREAM_TOPK_PASS1(W)                                                                  \
@@ -637,7 +641,7 @@ cudaError_t launch_passes(const CUtensorMap& gmap, const CUtensorMap& qmap, int 
 cudaError_t launch_all(const CUtensorMap& gmap, const CUtensorMap& qmap, const float* q, int B,
                        int N, int D, int k, int width, int groups, int n_split,
                        int rows_per_split, int n_cand, float* q_split,
-                       float* cand_s, int* cand_i, float* out_s, int* out_i, cudaStream_t st) {
+                       int* cand_s, int* cand_i, float* out_s, int* out_i, cudaStream_t st) {
   split_queries<<<groups * width, SPLIT_THREADS, 0, st>>>(q, B, D, width, q_split);
   auto* passes = k <= 8 ? &launch_passes<8> : k <= 16 ? &launch_passes<16> : &launch_passes<32>;
   return passes(gmap, qmap, B, N, D, k, width, groups, n_split, rows_per_split, n_cand, cand_s,
@@ -651,12 +655,13 @@ extern "C" {
 // q (B, D) and g (N, D) any rows, both float32 row-major with
 // D % 4 == 0 and 16-byte aligned. The plan (query width W, groups, n_split,
 // rows_per_split, n_cand) comes from the Python wrapper; q_split is
-// a (2 * groups * W, D) float32 scratch, cand_s/cand_i (B, n_cand). Returns
+// a (2 * groups * W, D) float32 scratch, cand_s/cand_i (B, n_cand) int32 (score
+// keys and rows). Returns
 // 0 on success, a CUDA error code, or -1 for a plan it cannot run and -2
 // when the driver's tensor-map encoder is missing or refuses a map.
 int stream_topk_launch(const float* q, const float* g, int B, int N, int D, int k, int width,
                        int groups, int n_split, int rows_per_split, int n_cand,
-                       float* q_split, float* cand_s, int* cand_i, float* out_s, int* out_i,
+                       float* q_split, int* cand_s, int* cand_i, float* out_s, int* out_i,
                        int device, void* stream) {
   if (B < 1 || N < 1 || D < 4 || D % 4 || k < 1 || k > 32 || width % 8 || groups < 1 ||
       groups * width < B || n_split < 1 || rows_per_split % TILE_ROWS ||

@@ -1,10 +1,12 @@
-"""Recognition engine: the fused one-face detect → align → embed → match path.
+"""Recognition engine: the fused detect → align → embed → match path.
 
 Counterpart of ``facerecognition_tpu/inference/engine.py``: ``Gallery``
 (enrollment, the exact-N device matrix and the capacity-padded device store)
-and ``RecognitionEngine.fused_recognize_frames`` for ``max_faces == 1``. The
-crowd path, the staged ``recognize``/``match`` API, int8 matching and gallery
-save/load wait (ROADMAP Queue 1).
+and ``RecognitionEngine.fused_recognize_frames`` for any ``max_faces``: one
+face per frame by the argmax decode, or the crowd path (``max_faces > 1``:
+decode → top-K → NMS, every slot aligned, embedded and matched, invalid
+slots masked on the host). The staged ``recognize``/``match`` API, int8
+matching and gallery save/load wait (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -20,14 +22,19 @@ from facerecognition_tpu_torch.inference.extract_embeddings import (
     load_arcface_model,
 )
 from facerecognition_tpu_torch.models.detector_net import detect_best_face
+from facerecognition_tpu_torch.ops.detect_post import detect_post
 from facerecognition_tpu_torch.ops.image import normalize_imagenet_style
 from facerecognition_tpu_torch.ops.matcher import auto_cosine_topk
-from facerecognition_tpu_torch.ops.warp_mxu import (
-    align_crop_mxu_batch,
-    bilinear_resize_mxu_batch,
+from facerecognition_tpu_torch.ops.warp_sample import (
+    align_crop,
+    align_crop_window,
+    bilinear_resize,
 )
 
 MATCH_KERNELS = ("auto", "dense", "stream")
+#: Crowd-path crop window per slot, as the JAX engine's ``_CROWD_WINDOW``:
+#: frames with min(H, W) above it warp each slot from a window² crop.
+CROWD_WINDOW = 160
 
 
 class Gallery:
@@ -99,16 +106,21 @@ class Gallery:
         self._store = grown
 
     def add(self, name: str, embedding: np.ndarray) -> None:
-        """Enroll (or replace) one identity."""
-        self.add_many([name], np.asarray(embedding, np.float32).reshape(1, -1))
+        """Enroll (or replace) one identity: ``e / (||e|| + 1e-12)``, as the
+        JAX ``add`` normalizes."""
+        emb = np.asarray(embedding, np.float32).reshape(1, -1)
+        self._write([name], emb / (np.linalg.norm(emb) + 1e-12))
 
     def add_many(self, names: Sequence[str], embeddings: np.ndarray) -> None:
-        """Bulk enrollment: one vectorized normalize and one block write.
-        A repeated name keeps its last embedding, as repeated ``add`` does."""
+        """Bulk enrollment: one vectorized normalize (``e / max(||e||,
+        1e-12)``, as the JAX ``add_many``) and one block write. A repeated
+        name keeps its last embedding, as repeated ``add`` does."""
         if len(names) == 0:
             return
         embs = np.ascontiguousarray(embeddings, np.float32).reshape(len(names), -1)
-        embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+        self._write(names, embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12))
+
+    def _write(self, names: Sequence[str], embs: np.ndarray) -> None:
         self._reserve(len(names))
         row_of_batch: dict[int, int] = {}
         for j, name in enumerate(names):
@@ -167,23 +179,36 @@ class RecognitionEngine:
         self.match_kernel = match_kernel
 
     @torch.no_grad()
-    def _fused(self, frames: torch.Tensor, k: int):
+    def _fused(self, frames: torch.Tensor, k: int, max_faces: int):
         """detect → align → embed → match for a (B, H, W, 3) frame batch on
-        the device; one face per frame (the detector's argmax anchor)."""
+        the device, ``max_faces`` slots per frame. Returns scores and indices
+        (B, M, k), detector scores (B, M), boxes (B, M, 4) in frame pixels,
+        validity (B, M) and embeddings (B, M, D)."""
         det = self.detector
         size = self.embedder.config.input_size
         det_size = det.input_size
-        h, w = frames.shape[1], frames.shape[2]
+        bsz, h, w = frames.shape[:3]
+        dev = frames.device
         with strict_fp32():
-            frames = frames.float()
-            small = bilinear_resize_mxu_batch(frames, det_size, det_size, True)
+            small = bilinear_resize(frames, det_size, det_size, True)
             raw = det.net(small / 127.5 - 1.0)
-            boxes, lms, det_scores = detect_best_face(raw, det.anchors)
-            scale = torch.tensor([w / det_size, h / det_size], device=frames.device)
-            hi = torch.tensor([w - 1.0, h - 1.0], device=frames.device)
+            if max_faces == 1:
+                # Greedy NMS's first pick is the score argmax.
+                b1, l1, s1 = detect_best_face(raw, det.anchors)
+                boxes, lms, det_scores = b1[:, None], l1[:, None], s1[:, None]
+                valid = torch.ones((bsz, 1), dtype=torch.bool, device=dev)
+            else:
+                boxes, lms, det_scores, valid = detect_post(
+                    raw, det.anchors, det.iou_threshold, max_faces
+                )
+            scale = torch.tensor([w / det_size, h / det_size], device=dev)
+            hi = torch.tensor([w - 1.0, h - 1.0], device=dev)
             lms = torch.minimum(torch.clamp(lms * scale, min=0.0), hi)
             boxes = boxes * scale.repeat(2)  # frame-pixel coords
-            aligned = align_crop_mxu_batch(frames, lms, size, True)
+            if max_faces > 1 and min(h, w) > CROWD_WINDOW:
+                aligned = align_crop_window(frames, lms, size, CROWD_WINDOW, True)
+            else:
+                aligned = align_crop(frames, lms, size, True)
             emb = self.embedder.model(normalize_imagenet_style(aligned)).float()
         emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
         if self.match_kernel == "stream":
@@ -195,23 +220,30 @@ class RecognitionEngine:
             scores, idx = auto_cosine_topk(
                 emb, gal, k, normalized=True, kernel=self.match_kernel, n_valid=n_valid
             )
-        return scores, idx, det_scores, boxes, emb
+        return (
+            scores.reshape(bsz, max_faces, -1),
+            idx.reshape(bsz, max_faces, -1),
+            det_scores,
+            boxes,
+            valid,
+            emb.reshape(bsz, max_faces, -1),
+        )
 
     def fused_recognize_frames(
         self, frames: np.ndarray, k: int = 5, max_faces: int = 1
     ) -> list[dict]:
-        """Recognize a (B, H, W, 3) frame batch with one face per frame.
+        """Recognize a (B, H, W, 3) frame batch, up to ``max_faces`` faces per
+        frame.
 
         Needs a detector and a non-empty gallery. Returns one dict per frame
-        (identity/confidence/top_k/bbox/status/embedding, 'No face' when the
-        face misses the detector's calibrated confidence threshold or minimum
-        size) with a ``'faces'`` list, as the JAX engine does.
+        whose top-level fields describe its best face (identity/confidence/
+        top_k/bbox/status/embedding, 'No face' when no face clears the
+        detector's calibrated confidence threshold and minimum size) and a
+        ``'faces'`` list with the same fields for every detected face, in
+        NMS slot order (score descending), as the JAX engine does.
         """
-        if max_faces != 1:
-            raise NotImplementedError(
-                "only max_faces=1 is ported; the crowd path (detect_faces + "
-                "nms_padded + the windowed warp) is ROADMAP Queue 1's next item"
-            )
+        if max_faces < 1:
+            raise ValueError(f"max_faces must be >= 1, got {max_faces}")
         if self.detector is None:
             raise ValueError("fused path needs a detector")
         if len(self.gallery) == 0:
@@ -220,14 +252,11 @@ class RecognitionEngine:
         if frames.dtype != np.uint8:
             frames = frames.astype(np.float32)
         k_eff = min(k, len(self.gallery))
-        scores, idx, det_scores, boxes, emb = self._fused(
-            torch.as_tensor(frames, device=self.device), k_eff
+        out = self._fused(
+            torch.as_tensor(np.ascontiguousarray(frames), device=self.device), k_eff, max_faces
         )
-        scores = scores.cpu().numpy()
-        idx = idx.cpu().numpy()
-        det_scores = det_scores.cpu().numpy().astype(np.float64)
-        boxes = boxes.cpu().numpy()
-        emb = emb.cpu().numpy()
+        scores, idx, det_scores, boxes, valid, emb = (t.cpu().numpy() for t in out)
+        det_scores = det_scores.astype(np.float64)
         # Platt calibration on the host in float64, as the JAX engine.
         cal = getattr(self.detector, "_calibration", None)
         if cal is not None:
@@ -236,12 +265,35 @@ class RecognitionEngine:
             det_scores = 1.0 / (1.0 + np.exp(-(a_c * np.log(s / (1.0 - s)) + b_c)))
         conf_thr = self.detector.confidence_threshold
         min_size = self.detector.min_face_size
-        out = []
+        results = []
         for b in range(len(frames)):
-            bw = boxes[b, 2] - boxes[b, 0]
-            bh = boxes[b, 3] - boxes[b, 1]
-            if det_scores[b] < conf_thr or min(bw, bh) < min_size:
-                out.append(
+            faces = []
+            for m in range(max_faces):
+                if not valid[b, m] or det_scores[b, m] < conf_thr:
+                    continue
+                bw = boxes[b, m, 2] - boxes[b, m, 0]
+                bh = boxes[b, m, 3] - boxes[b, m, 1]
+                if min(bw, bh) < min_size:
+                    continue
+                top = [
+                    (self.gallery.names[int(i)], float(s))
+                    for s, i in zip(scores[b, m], idx[b, m])
+                ]
+                name, score = top[0]
+                if score < self.threshold:
+                    name = "Unknown"
+                faces.append(
+                    {
+                        "identity": name,
+                        "confidence": score,
+                        "top_k": top,
+                        "bbox": boxes[b, m].tolist(),
+                        "det_score": float(det_scores[b, m]),
+                        "embedding": emb[b, m],
+                    }
+                )
+            if not faces:
+                results.append(
                     {
                         "identity": "No face",
                         "confidence": 0.0,
@@ -253,30 +305,16 @@ class RecognitionEngine:
                     }
                 )
                 continue
-            top = [
-                (self.gallery.names[int(i)], float(s))
-                for s, i in zip(scores[b], idx[b])
-            ]
-            name, score = top[0]
-            if score < self.threshold:
-                name = "Unknown"
-            face = {
-                "identity": name,
-                "confidence": score,
-                "top_k": top,
-                "bbox": boxes[b].tolist(),
-                "det_score": float(det_scores[b]),
-                "embedding": emb[b],
-            }
-            out.append(
+            best = faces[0]  # NMS slots come score-descending
+            results.append(
                 {
-                    "identity": name,
-                    "confidence": score,
-                    "top_k": top,
-                    "bbox": face["bbox"],
+                    "identity": best["identity"],
+                    "confidence": best["confidence"],
+                    "top_k": best["top_k"],
+                    "bbox": best["bbox"],
                     "status": "success",
-                    "embedding": emb[b],
-                    "faces": [face],
+                    "embedding": best["embedding"],
+                    "faces": faces,
                 }
             )
-        return out
+        return results

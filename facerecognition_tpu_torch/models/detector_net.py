@@ -1,7 +1,9 @@
 """Single-stage face detector: the DenseDetNet backbone, anchors and decode.
 
 Counterpart of ``facerecognition_tpu/models/detector_net.py`` (the ``dense``
-arch, shipped as ``assets/detector_v4_128.msgpack``). Input and output keep
+arch, shipped as ``assets/detector_v4_128.msgpack``), and the post-process:
+the one-face argmax decode and the crowd path's decode → top-K → NMS (whose
+card version is the ``ops.detect_post`` kernel). Input and output keep
 the JAX layout: (B, S, S, 3) normalized NHWC → (B, A, 15) raw predictions,
 A = (S/8)²·2 + (S/16)²·6 anchors ordered (y, x, anchor). Each anchor
 predicts [logit, dcx, dcy, w, h, 5 × (lx, ly)] relative to its centre.
@@ -15,6 +17,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from facerecognition_tpu_torch.ops.matcher import topk_lowest_index
+from facerecognition_tpu_torch.ops.nms import nms_padded
 
 
 def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -121,6 +126,47 @@ def decode_predictions(raw: torch.Tensor, anchors: torch.Tensor):
     lm = raw[..., 5:15].reshape(*raw.shape[:-1], 5, 2) * base[..., None, None] * 0.5
     landmarks = lm + torch.stack([cx0, cy0], -1)[..., None, :]
     return scores, boxes, landmarks
+
+
+def prefilter_size(n_anchors: int, max_faces: int) -> int:
+    """Candidates kept before NMS: 8 per output slot, at least 64, as the
+    JAX ``detect_faces``."""
+    return min(n_anchors, max(64, 8 * max_faces))
+
+
+def detect_faces_batch(
+    raw: torch.Tensor, anchors: torch.Tensor, iou_threshold: float, max_faces: int = 16
+):
+    """Full post-process of each frame: decode → top-K prefilter → NMS.
+
+    raw (B, A, 15), anchors (A, 3) → boxes (B, M, 4), landmarks (B, M, 5, 2),
+    scores (B, M) (0 where invalid), valid (B, M), M = ``max_faces``. The
+    prefilter ranks the sigmoid scores in ``lax.top_k``'s order (value
+    descending, index ascending): logits above about 17 all round to 1.0 and
+    tie, and the lowest anchors win. Invalid slots carry the top candidate's
+    box and landmarks, as the JAX function's ``maximum(keep_idx, 0)``.
+    """
+    scores, boxes, landmarks = decode_predictions(raw, anchors)
+    k = prefilter_size(scores.shape[1], max_faces)
+    top_s, top_i = topk_lowest_index(scores, k)
+    top_i = top_i.long()
+    top_boxes = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
+    top_lm = torch.gather(landmarks, 1, top_i[..., None, None].expand(-1, -1, 5, 2))
+    keep, valid = nms_padded(top_boxes, top_s, iou_threshold, max_faces)
+    safe = torch.clamp(keep, min=0).long()
+    out_s = torch.gather(top_s, 1, safe)
+    return (
+        torch.gather(top_boxes, 1, safe[..., None].expand(-1, -1, 4)),
+        torch.gather(top_lm, 1, safe[..., None, None].expand(-1, -1, 5, 2)),
+        torch.where(valid, out_s, torch.zeros_like(out_s)),
+        valid,
+    )
+
+
+def detect_faces(raw: torch.Tensor, anchors: torch.Tensor, iou_threshold: float, max_faces: int = 16):
+    """``detect_faces_batch`` of one frame's raw (A, 15): boxes (M, 4),
+    landmarks (M, 5, 2), scores (M,), valid (M,)."""
+    return tuple(t[0] for t in detect_faces_batch(raw[None], anchors, iou_threshold, max_faces))
 
 
 def detect_best_face(raw: torch.Tensor, anchors: torch.Tensor):

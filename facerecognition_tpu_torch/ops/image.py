@@ -1,4 +1,4 @@
-"""Image ops of the one-face path: cv2-convention resize and normalize.
+"""Image ops of the serving path: cv2-convention resizes and normalize.
 
 Counterpart of ``facerecognition_tpu/ops/image.py``. Layout stays channel
 last (HWC / NHWC) at the public functions, as in the JAX package.
@@ -39,6 +39,57 @@ def bilinear_resize(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     if not batched:
         out = out[0]
     return out[..., 0] if squeeze else out
+
+
+#: OpenCV's fixed-point resize coefficients: weights in units of 2^-11
+#: (``INTER_RESIZE_COEF_BITS``).
+RESIZE_COEF_BITS = 11
+
+
+def _cv2_taps(n_src: int, n_dst: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """First source tap and its fraction per destination index, as OpenCV
+    computes them: ``(d + 0.5) * scale - 0.5`` in double, cast to float32,
+    then floor and the float32 remainder."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((torch.arange(n_dst, dtype=torch.float64) + 0.5) * scale - 0.5).float()
+    s = torch.floor(f)
+    return s.long(), f - s
+
+
+def _cv2_coefs(frac: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(1 - f, f) in units of 2^-11, rounded half to even (``cvRound``)."""
+    one = float(1 << RESIZE_COEF_BITS)
+    return (
+        torch.round((1.0 - frac) * one).int(),
+        torch.round(frac * one).int(),
+    )
+
+
+def bilinear_resize_u8(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``cv2.resize(image, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    on a uint8 (H, W, C) image, bit for bit: OpenCV's fixed-point arithmetic
+    (11-bit weights, a horizontal pass in int32, then the vertical pass as
+    its SIMD code rounds it: ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >>
+    16)``, plus 2, shifted right by 2). At the left and right edges the
+    source column is clamped and its fraction set to 0; rows are clamped.
+    Returns uint8 (out_h, out_w, C).
+    """
+    if image.dtype != torch.uint8 or image.ndim != 3:
+        raise ValueError(f"expected a uint8 (H, W, C) image, got {image.dtype} {tuple(image.shape)}")
+    h, w, _ = image.shape
+    sx, fx = _cv2_taps(w, out_w)
+    lo, hi = sx < 0, sx >= w - 1
+    fx = torch.where(lo | hi, torch.zeros_like(fx), fx)
+    sx = sx.clamp(0, w - 1)
+    a0, a1 = _cv2_coefs(fx)
+    sy, fy = _cv2_taps(h, out_h)
+    b0, b1 = _cv2_coefs(fy)
+    src = image.int()
+    rows = src[:, sx] * a0[None, :, None] + src[:, (sx + 1).clamp(max=w - 1)] * a1[None, :, None]
+    r0 = rows[sy.clamp(0, h - 1)] >> 4
+    r1 = rows[(sy + 1).clamp(0, h - 1)] >> 4
+    v = ((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16)
+    return ((v + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
 def normalize_imagenet_style(

@@ -25,23 +25,36 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.clamp(n, min=eps)
 
 
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order float32 scores as ``lax.top_k`` does: IEEE total
+    order (-NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN), with every NaN
+    of one sign on one key, so NaNs tie among themselves and go lowest index
+    first. ``csrc/stream_topk.cu`` (``order_key``) computes the same keys."""
+    bits = scores.float().contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    nan_key = torch.where(bits >= 0, 0x7FFFFFFF, -0x7FFFFFFF).to(torch.int32)
+    return torch.where(torch.isnan(scores), nan_key, key)
+
+
 def topk_lowest_index(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of each row of ``scores`` in (value descending, index ascending)
-    order — ``lax.top_k``'s order. ``torch.topk`` does not promise an order
-    among equal values, so it only finds the k-th value here; the entries
-    above it and the lowest-index entries equal to it are then taken.
+    order — ``lax.top_k``'s order, NaN above +inf (``order_key``).
+    ``torch.topk`` does not promise an order among equal values, so it only
+    finds the k-th key here; the entries above it and the lowest-index
+    entries equal to it are then taken.
 
     Returns (values (B, k), int32 indices (B, k)).
     """
-    kth = torch.topk(scores, k, dim=1).values[:, -1:]
-    above = scores > kth
-    equal = scores == kth
+    keys = order_key(scores)
+    kth = torch.topk(keys, k, dim=1).values[:, -1:]
+    above = keys > kth
+    equal = keys == kth
     need = k - above.sum(dim=1, keepdim=True)
     take = above | (equal & (torch.cumsum(equal, dim=1) <= need))
     idx = take.nonzero()[:, 1].reshape(scores.shape[0], k)  # ascending per row
-    vals = torch.gather(scores, 1, idx)
-    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
-    return torch.gather(vals, 1, order), torch.gather(idx, 1, order).int()
+    order = torch.sort(torch.gather(keys, 1, idx), dim=1, descending=True, stable=True).indices
+    idx = torch.gather(idx, 1, order)
+    return torch.gather(scores, 1, idx), idx.int()
 
 
 def cosine_topk(
@@ -81,17 +94,22 @@ def auto_cosine_topk(
     would pressure device memory.
 
     ``kernel``: ``'auto'`` (the streaming kernel for a CUDA gallery whose
-    (B, N) scores exceed ``DENSE_SCORES_MAX_BYTES``, with no ``n_valid``),
-    ``'dense'``, or ``'stream'``. The kernel has no mask, so ``'stream'``
-    with ``n_valid`` is rejected: pass the exact-size gallery.
+    (B, N) scores exceed ``DENSE_SCORES_MAX_BYTES``, with no ``n_valid`` and
+    ``k <= ops.stream_topk.MAX_K``), ``'dense'``, or ``'stream'``. The
+    kernel has no mask, so ``'stream'`` with ``n_valid`` is rejected: pass
+    the exact-size gallery.
     """
     if kernel not in ("auto", "dense", "stream"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if kernel == "auto":
+        # local: ops.stream_topk imports this module
+        from facerecognition_tpu_torch.ops.stream_topk import MAX_K
+
         scores_bytes = queries.shape[0] * gallery.shape[0] * 4
         kernel = (
             "stream"
             if n_valid is None
+            and k <= MAX_K
             and gallery.device.type == "cuda"
             and scores_bytes > DENSE_SCORES_MAX_BYTES
             else "dense"

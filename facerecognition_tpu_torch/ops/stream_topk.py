@@ -26,6 +26,9 @@ from facerecognition_tpu_torch.device import strict_fp32
 from facerecognition_tpu_torch.ops.matcher import l2_normalize, topk_lowest_index
 
 MAX_K = 32
+#: Row counts (queries and gallery rows) stay below this: the kernel's row
+#: indices are int32; its offsets and split bounds are 64-bit.
+MAX_ROWS = 2**31 - 1
 #: Score and index of a slot no gallery row fills (k > N), as the Pallas
 #: wrapper returns them.
 UNFILLED_SCORE = -1e30
@@ -73,6 +76,8 @@ def plan(b: int, n: int, k: int, sm_count: int) -> Plan:
     width = next(w for w in QUERY_WIDTHS if w >= per_group)
     n_tiles = -(-n // TILE_ROWS)
     split = max(1, min(n_tiles, -(-sm_count // groups)))
+    if n_tiles * TILE_ROWS > MAX_ROWS:  # rows_per_split is a C int
+        split = max(split, 2)
     rows_per_split = -(-n_tiles // split) * TILE_ROWS
     n_split = -(-n // rows_per_split)
     return Plan(width, groups, n_split, rows_per_split, n_split * CONSUMERS * k)
@@ -132,8 +137,8 @@ def _check(queries: torch.Tensor, gallery: torch.Tensor, k: int) -> None:
         raise ValueError("need at least one query and one gallery row")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
-    if max(b, n) * d >= 2**31:
-        raise ValueError("row count times width must stay below 2**31")
+    if max(b, n) > MAX_ROWS:
+        raise ValueError(f"row counts must stay below 2**31, got B={b}, N={n}")
 
 
 def stream_topk(
@@ -155,7 +160,7 @@ def stream_topk(
     # one scratch: the split queries, then the candidates' scores and indices
     q_elems, c_elems = 2 * p.groups * p.width * d, b * p.n_cand
     scratch = torch.empty(q_elems + 2 * c_elems, dtype=torch.float32, device=device)
-    cand_s = scratch[q_elems:q_elems + c_elems]
+    cand_s = scratch[q_elems:q_elems + c_elems].view(torch.int32)  # score keys
     cand_i = scratch[q_elems + c_elems:].view(torch.int32)
     out_s = torch.empty((b, k), dtype=torch.float32, device=device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=device)

@@ -1,10 +1,12 @@
 """Two-pass separable affine warp and resize as interpolation-matrix products.
 
 Counterpart of ``facerecognition_tpu/ops/warp_mxu.py`` (XLA einsums there,
-not Pallas, so plain PyTorch here). A vertical 1-D resample followed by a
-horizontal one, each a dense interpolation-matrix product (Catmull & Smith
-1980); see the JAX module for the derivation. On the card this runs as
-batched cuBLAS products; a direct-sampling kernel is a later step.
+not Pallas). A vertical 1-D resample followed by a horizontal one, each a
+dense interpolation-matrix product (Catmull & Smith 1980); see the JAX
+module for the derivation. These are the plain versions of the
+``warp_sample`` kernel (``ops/warp_sample.py``), which computes the same
+function by sampling four source pixels per output pixel; the per-slot
+coefficients, resize positions and crop windows below are shared with it.
 
 ``fast=True`` mirrors JAX's bf16 operands with float32 results: operands
 are rounded to bf16 and multiplied in float32 (TF32 off), which gives the
@@ -39,12 +41,19 @@ def _interp_weights(positions: torch.Tensor, n_src: int) -> torch.Tensor:
     return w * inside[..., None].float()
 
 
-def _warp_from_inverse(
-    imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int, fast: bool
-) -> torch.Tensor:
-    """Warp (k, H, W, C) images by (k, 2, 3) inverse (output → source) maps."""
-    _, h, w, _ = imgs.shape
-    dev = imgs.device
+def inside_bounds(n_src: int) -> tuple[float, float]:
+    """The float32 bounds ``_interp_weights`` holds positions to, as the
+    float32 values the comparisons use."""
+    return (
+        float(torch.tensor(-1.0 + 1e-6, dtype=torch.float32)),
+        float(torch.tensor(n_src - 1e-6, dtype=torch.float32)),
+    )
+
+
+def warp_coefficients(minv: torch.Tensor) -> torch.Tensor:
+    """(k, 2, 3) inverse maps → (k, 6) float32 ``m00, m01, m02, aa, bb, cc``:
+    pass 2 samples column ``x_s = m00 j + m01 i + m02``, pass 1 samples
+    column x at row ``Y = aa i + bb x + cc``."""
     m00, m01, m02 = minv[:, 0, 0], minv[:, 0, 1], minv[:, 0, 2]
     m10, m11, m12 = minv[:, 1, 0], minv[:, 1, 1], minv[:, 1, 2]
     # Rotations of 90° or more are unsupported; keep m00 away from 0 with
@@ -56,6 +65,16 @@ def _warp_from_inverse(
     # moves a sample position by an ulp, which can flip a bf16 weight.
     aa = fma(-bb, m01, m11)
     cc = fma(-bb, m02, m12)
+    return torch.stack([m00, m01, m02, aa, bb, cc], 1).float()
+
+
+def _warp_from_inverse(
+    imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int, fast: bool
+) -> torch.Tensor:
+    """Warp (k, H, W, C) images by (k, 2, 3) inverse (output → source) maps."""
+    _, h, w, _ = imgs.shape
+    dev = imgs.device
+    m00, m01, m02, aa, bb, cc = warp_coefficients(minv).unbind(1)
 
     ii = torch.arange(out_h, device=dev, dtype=torch.float32)[:, None]
     xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
@@ -110,6 +129,13 @@ def affine_warp_mxu_batch(
     )
 
 
+def resize_positions(n_src: int, n_dst: int, device) -> torch.Tensor:
+    """Source positions of a resize (cv2 half-pixel centres), clamped to the
+    edge pixels: (n_dst,) float32."""
+    pos = (torch.arange(n_dst, device=device, dtype=torch.float32) + 0.5) * (n_src / n_dst) - 0.5
+    return pos.clamp(0.0, n_src - 1.0)
+
+
 def bilinear_resize_mxu_batch(
     images: torch.Tensor, out_h: int, out_w: int, fast: bool = False
 ) -> torch.Tensor:
@@ -118,16 +144,23 @@ def bilinear_resize_mxu_batch(
     _, h, w, _ = images.shape
     img = images.float()
     dev = img.device
-    ypos = (torch.arange(out_h, device=dev, dtype=torch.float32) + 0.5) * (h / out_h) - 0.5
-    xpos = (torch.arange(out_w, device=dev, dtype=torch.float32) + 0.5) * (w / out_w) - 0.5
-    wy = _interp_weights(ypos.clamp(0.0, h - 1.0), h)  # (out_h, H)
-    wx = _interp_weights(xpos.clamp(0.0, w - 1.0), w)  # (out_w, W)
+    wy = _interp_weights(resize_positions(h, out_h, dev), h)  # (out_h, H)
+    wx = _interp_weights(resize_positions(w, out_w, dev), w)  # (out_w, W)
     if fast:
         wy, wx, img = _bf16_round(wy), _bf16_round(wx), _bf16_round(img)
     mid = torch.einsum("iy,byxc->bixc", wy, img)
     if fast:
         mid = _bf16_round(mid)
     return torch.einsum("jx,bixc->bijc", wx, mid)
+
+
+def align_matrices(landmarks: torch.Tensor, out_size: int) -> torch.Tensor:
+    """(k, 5, 2) landmarks → (k, 2, 3) similarity maps onto the ArcFace
+    template scaled to ``out_size``."""
+    template = torch.as_tensor(ARCFACE_TEMPLATE, device=landmarks.device) * (
+        out_size / 112.0
+    )
+    return umeyama_batch(landmarks.float(), template)
 
 
 def align_crop_mxu_batch(
@@ -140,8 +173,59 @@ def align_crop_mxu_batch(
 
     images (B, H, W, C), landmarks (B, 5, 2) → (B, out_size, out_size, C).
     """
-    template = torch.as_tensor(ARCFACE_TEMPLATE, device=images.device) * (
-        out_size / 112.0
-    )
-    ms = umeyama_batch(landmarks.float(), template)
+    ms = align_matrices(landmarks, out_size)
     return affine_warp_mxu_batch(images, ms, out_size, out_size, 32, fast)
+
+
+def window_slots(
+    landmarks: torch.Tensor, h: int, w: int, out_size: int, window: int
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Each slot's static crop window, for ``align_crop_mxu_window``.
+
+    landmarks (B, M, 5, 2) in frame pixels → (the (B·M, 2, 3) maps from the
+    crop onto the template, (B·M, 2) int64 window origins (x0, y0), the
+    window side ``min(window, h, w)``). The window is centred on the inverse
+    image of the output centre, rounded half to even, clamped into the frame.
+    """
+    b, m = landmarks.shape[:2]
+    win = min(window, h, w)
+    ms = align_matrices(landmarks.reshape(b * m, 5, 2), out_size)
+    minv = invert_affine(ms)
+    ctr = torch.tensor(
+        [(out_size - 1) / 2.0, (out_size - 1) / 2.0, 1.0], device=ms.device
+    )
+    src_ctr = minv @ ctr  # (B·M, 2) centre of the sampled region (x, y)
+    start = torch.round(src_ctr - (win - 1) / 2.0).long()
+    origin = torch.stack(
+        [start[:, 0].clamp(0, w - win), start[:, 1].clamp(0, h - win)], 1
+    )
+    # Cropping moves source coordinates by -origin: dst = A src + t becomes
+    # dst = A src' + (A origin + t).
+    ms_c = ms.clone()
+    ms_c[:, :, 2] += (ms[:, :, :2] @ origin.float()[:, :, None])[:, :, 0]
+    return ms_c, origin, win
+
+
+def align_crop_mxu_window(
+    frames: torch.Tensor,
+    landmarks: torch.Tensor,
+    out_size: int = 112,
+    window: int = 160,
+    fast: bool = False,
+) -> torch.Tensor:
+    """Multi-face alignment: each slot warped from a static ``window``² crop
+    of its frame (zero outside the crop), not from the whole frame.
+
+    frames (B, H, W, C), landmarks (B, M, 5, 2) → (B·M, out_size, out_size,
+    C) float32, slot-major per frame. Equal to the full-frame warp wherever
+    the source sample lies inside the window (see the JAX function).
+    """
+    b, h, w, _ = frames.shape
+    m = landmarks.shape[1]
+    ms_c, origin, win = window_slots(landmarks, h, w, out_size, window)
+    steps = torch.arange(win, device=frames.device)
+    frame_of = torch.arange(b, device=frames.device).repeat_interleave(m)
+    ys = (origin[:, 1, None] + steps)[:, :, None]  # (B·M, win, 1)
+    xs = (origin[:, 0, None] + steps)[:, None, :]  # (B·M, 1, win)
+    crops = frames.float()[frame_of[:, None, None], ys, xs]
+    return affine_warp_mxu_batch(crops, ms_c, out_size, out_size, 32, fast)

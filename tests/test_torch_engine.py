@@ -109,8 +109,8 @@ def test_engine_rejects_unported_choices(scene, port_stream):
         RecognitionEngine(embedder=port_stream.embedder, match_kernel="int8", device="cpu")
     with pytest.raises(ValueError, match="unknown match_kernel"):
         RecognitionEngine(embedder=port_stream.embedder, match_kernel="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="crowd path"):
-        port_stream.fused_recognize_frames(scene[0][:1], max_faces=2)
+    with pytest.raises(ValueError, match="max_faces"):
+        port_stream.fused_recognize_frames(scene[0][:1], max_faces=0)
     with pytest.raises(ValueError, match="non-empty gallery"):
         RecognitionEngine(
             embedder=port_stream.embedder, detector=port_stream.detector, device="cpu"

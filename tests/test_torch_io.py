@@ -15,7 +15,10 @@ import torch
 
 from facerecognition_tpu_torch import _build
 from facerecognition_tpu_torch.convert import flax_to_state_dict
+from facerecognition_tpu_torch.ops import detect_post as dp
 from facerecognition_tpu_torch.ops import stream_topk as st
+from facerecognition_tpu_torch.ops import warp_mxu
+from facerecognition_tpu_torch.ops import warp_sample as ws
 from facerecognition_tpu_torch.utils.serialization import load_variables, unpackb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,12 +109,16 @@ def test_port_imports_nothing_of_jax():
         "import chip_smoke\n"
         "bad = ('jax', 'flax', 'msgpack', 'cv2', 'PIL', 'facerecognition_tpu')\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n"
+        "print(sorted(m.split('.')[-1] for m in sys.modules if m.startswith(p.__name__ + '.ops.')))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     )
-    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+    bad, ops = out.stdout.strip().splitlines()
+    assert bad == "[]", out.stdout + out.stderr
+    for wrapper in ("stream_topk", "warp_sample", "detect_post"):
+        assert f"'{wrapper}'" in ops, ops
 
 
 def test_csrc_does_not_include_torch_headers():
@@ -184,3 +191,82 @@ def test_stream_topk_off_cpu_never_takes_the_plain_path(tmp_path, monkeypatch):
     g = torch.zeros(5, 8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         st.stream_topk(q, g, 3)
+
+
+def _meta_frames(dtype=torch.uint8, shape=(2, 32, 32, 3)):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize(
+    "call, error",
+    [
+        (lambda: ws.bilinear_resize(_meta_frames(torch.float64), 16, 16), TypeError),
+        (lambda: ws.align_crop(_meta_frames(torch.int32), torch.zeros(2, 1, 5, 2, device="meta"), 8),
+         TypeError),
+        (lambda: ws.bilinear_resize(_meta_frames(shape=(2, 32, 32, 4)), 16, 16), ValueError),
+        (lambda: ws.bilinear_resize(_meta_frames().transpose(1, 2), 16, 16), ValueError),
+        (lambda: ws.bilinear_resize(_meta_frames(), 16, 16, fast="int8"), NotImplementedError),
+        (lambda: ws.align_crop(_meta_frames(), torch.zeros(2, 3, 5, 2), 16), ValueError),  # mixed devices
+        (lambda: ws.align_crop_window(_meta_frames(torch.float16), torch.zeros(2, 3, 5, 2, device="meta"), 16, 24),
+         TypeError),
+    ],
+)
+def test_warp_sample_checks_before_launch(call, error):
+    before = ws.launches.count
+    with pytest.raises(error):
+        call()
+    assert ws.launches.count == before
+
+
+@pytest.mark.parametrize(
+    "raw, anchors, error",
+    [
+        (torch.zeros(2, 10, 15), torch.zeros(10, 3, device="meta"), ValueError),  # mixed devices
+        (torch.zeros(2, 10, 15, device="meta", dtype=torch.float64), torch.zeros(10, 3, device="meta"), TypeError),
+        (torch.zeros(2, 10, 14, device="meta"), torch.zeros(10, 3, device="meta"), ValueError),
+        (torch.zeros(2, 10, 15, device="meta"), torch.zeros(11, 3, device="meta"), ValueError),
+        (torch.zeros(2, 15, 10, device="meta").mT, torch.zeros(10, 3, device="meta"), ValueError),
+    ],
+)
+def test_detect_post_checks_before_launch(raw, anchors, error):
+    before = dp.launches.count
+    with pytest.raises(error):
+        dp.detect_post(raw, anchors, 0.3, 4)
+    assert dp.launches.count == before
+
+
+def test_new_kernels_off_cpu_never_take_the_plain_path(tmp_path, monkeypatch):
+    """Tensors that are not on the CPU go to the kernels (here: their build,
+    which fails without nvcc), never to the plain two-pass warp or the plain
+    post-process."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    for name in ("affine_warp_mxu_batch", "bilinear_resize_mxu_batch", "align_crop_mxu_batch",
+                 "align_crop_mxu_window"):
+        monkeypatch.setattr(warp_mxu, name, lambda *a, **k: pytest.fail("fell back"))
+    monkeypatch.setattr(dp, "detect_faces_batch", lambda *a, **k: pytest.fail("fell back"))
+    frames = _meta_frames()
+    lms = torch.zeros(2, 3, 5, 2, device="meta")
+    calls = [
+        lambda: ws.bilinear_resize(frames, 16, 16, True),
+        lambda: ws.align_crop(frames, lms, 16, True),
+        lambda: ws.align_crop_window(frames, lms, 16, 24, True),
+        lambda: dp.detect_post(torch.zeros(2, 10, 15, device="meta"), torch.zeros(10, 3, device="meta"), 0.3, 4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+
+
+def test_new_kernels_on_cpu_take_the_plain_path(rng):
+    frames = torch.as_tensor(rng.integers(0, 256, (2, 32, 40, 3)).astype(np.uint8))
+    before = (ws.launches.count, dp.launches.count)
+    got = ws.bilinear_resize(frames, 16, 20, True)
+    assert torch.equal(got, warp_mxu.bilinear_resize_mxu_batch(frames, 16, 20, True))
+    raw = torch.as_tensor(rng.normal(size=(2, 896, 15)).astype(np.float32))
+    from facerecognition_tpu_torch.models.detector_net import anchor_centers
+
+    dp.detect_post(raw, torch.as_tensor(anchor_centers(128)), 0.3, 2)
+    assert (ws.launches.count, dp.launches.count) == before
