@@ -20,14 +20,22 @@ Phases, each printing its wall seconds:
    the wrapper's kernels from the profiler's trace, and for the first case
    the SM clock and power draw under load (nvidia-smi).
 4. warp: ``warp_sample`` against the two-pass plain version, uint8 frames,
-   ``fast`` on and off: the resize 256²→128² and the align warp 256²→112²
-   at B = 128, the crowd window warp at B = 32 x M = 4, the repeat path at
-   160² frames; max and mean |Δ| in levels, kernel / plain / library times
-   (``interpolate`` for the resize at ``fast=False``), the bound, and the
-   kernel's device time from the profiler's trace.
+   ``fast`` on and off: the public functions (the resize 256²→128² and the
+   align warp 256²→112² at B = 128, the crowd window warp at B = 32 x M = 4,
+   the repeat path at 160² frames) and the model inputs the engine builds
+   (``detector_input``, ``embedder_input`` for the same three warps, from
+   landmarks in the detector's pixels, some outside the frame). Each must
+   equal the plain version bit for bit with ``fast`` on, within 1e-3 without;
+   the kernel's per-slot coefficients and window origins must equal the plain
+   version's bit for bit, on the card and on the CPU; one call must launch
+   exactly one kernel. Max and mean |Δ|, call / plain / library times
+   (``interpolate`` for the resize at ``fast=False``), the bound, the
+   kernel's device time and the call's trace.
 5. detect_post: the kernel against ``detect_faces_batch`` at B = 128, M = 4
-   and 16, on raw outputs with saturated-sigmoid ties: validity equal,
-   boxes, landmarks and scores close; kernel and plain times.
+   and 16 (timed), and at 3584 anchors, a prefilter of 512 and K = A = 48
+   (checked), on raw outputs with saturated-sigmoid ties and NaN logits:
+   boxes, landmarks, scores and validity equal bit for bit, one kernel per
+   call, and a 40000-anchor frame refused.
 6. serving: the shipped detector and ArcFace assets on the card, a
    100,000-row gallery with each frame's own embedding planted, and 16
    requests through ``MicroBatcher`` from 4 threads with the streaming
@@ -40,7 +48,9 @@ Phases, each printing its wall seconds:
 
 Phases 6 and 7 are the main paths: every kernel counter is set to 0 just
 before each and read just after, and each kernel of the path must have
-launched. It prints one ``{"kernels": [...]}`` line, then as its last line
+launched; after each, one fused call at B = 128 is profiled
+(``fused_profile``: device µs per kernel, launches per call, host time the
+device does not cover). It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit code
 is not 0; without a CUDA card it exits 2 before printing any result. A
 watchdog ends the run, with a stack dump, after 900 s.
@@ -69,6 +79,8 @@ HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
 DESIGN = "3xTF32 wgmma, TMA ring, gallery rows on M"
+WARP_DESIGN = ("four-tap direct sampling of the two-pass function, per-slot solve in the launch, "
+               "uint8 tile footprint staged by cp.async, planar normalised output")
 KERNEL_CASES = (  # (B, N, D, k)
     (128, 1_000_000, 512, 5),
     (1, 1_000_000, 512, 5),
@@ -92,16 +104,30 @@ N_CLIENTS = 4
 FRAME = (256, 256)
 CROWD_FACES = 4
 WARP_B = 128
+DET_SIZE = 128  # the shipped detector's input side
 # (name, frame side, frames, slots per frame, mode): the shapes the paths give
 # warp_sample. "resize" feeds the detector, "align" the one-face path, "window"
 # the crowd path at frames above 160², "repeat" the crowd path at 160² or less.
+# WARP_CASES call the public functions (no normalisation), INPUT_CASES the
+# model inputs the engine builds (detector_input, embedder_input).
 WARP_CASES = (
     ("resize", 256, WARP_B, 1, "resize"),
     ("align", 256, WARP_B, 1, "align"),
     ("window", 256, 32, CROWD_FACES, "window"),
     ("repeat", 160, 32, CROWD_FACES, "align"),
 )
-DETECT_CASES = ((128, 4), (128, 16))  # (B, M)
+INPUT_CASES = (
+    ("detector_input", 256, WARP_B, 1, "resize"),
+    ("embedder_input", 256, WARP_B, 1, "align"),
+    ("embedder_input_window", 256, 32, CROWD_FACES, "window"),
+    ("embedder_input_repeat", 160, 32, CROWD_FACES, "align"),
+)
+# (B, detector side of the anchors, anchors kept (None: all), M). Timed: the
+# crowd path's shape (896 anchors) at M = 4 and 16. Checked only: a frame of
+# 3584 anchors (four warps share it), a prefilter of 512 (two warps), and
+# K = A = 48.
+DETECT_CASES = ((128, 128, None, 4), (128, 128, None, 16))
+DETECT_CHECKS = ((16, 256, None, 16), (8, 128, None, 64), (4, 128, 48, 16))
 PROFILE_BATCH = 128  # the fused call profiled at the serving batch
 
 
@@ -150,36 +176,69 @@ def host_us(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def profile_kernels(fn, calls: int = 5, attempts: int = 5) -> dict:
+    """Every device event ``fn`` causes, by name, from the profiler's CUDA
+    trace: {name: (events per call, device µs per call)}. A trace that came
+    back without device events (the tracer now and then drops whole windows
+    in a row) is taken again after a pause, up to ``attempts`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            if ev.device_time_total <= 0:
+                continue
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", ev.key)
+            count, us = out.get(name, (0.0, 0.0))
+            out[name] = (count + ev.count / calls, us + ev.device_time_total / calls)
+        if out:
+            break
+        print(f"profiler: window {attempt + 1} of {attempts} held no device event",
+              file=sys.stderr, flush=True)
+    return out
+
+
 def device_us(fn, kernels=None, calls: int = 5) -> dict:
     """Device microseconds per call of each kernel ``fn`` launches, by name,
     from the profiler's CUDA trace. Given ``kernels`` (base names), only
     those, and it fails unless the trace holds each of them; else every
     kernel, and it fails if the trace holds none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        if ev.device_time_total <= 0:
-            continue
-        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", ev.key)
+    for name, (_, us) in profile_kernels(fn, calls).items():
         if kernels is None:
             name = name[:60]
         elif name.split("<")[0] not in kernels:
             continue
-        out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+        out[name] = out.get(name, 0.0) + us
     if kernels is None:
         check(bool(out), "the profiler's trace holds no device time")
     else:
         found = {name.split("<")[0] for name in out}
         check(found == set(kernels), f"profiler trace holds {sorted(found)}, not {list(kernels)}")
     return out
+
+
+def kernel_trace(fn, kernel: str, calls: int = 5) -> tuple[list, dict]:
+    """One profiled window of ``calls`` calls of ``fn``: the device events of
+    one call, which must be exactly one, ``kernel``'s (no copy, no
+    elementwise or solver kernel around it), or it fails; and that kernel's
+    device µs per call."""
+    events = profile_kernels(fn, calls)
+    per_call = []
+    for name, (count, _) in events.items():
+        per_call += [name.split("<")[0]] * round(count)
+    check(per_call == [kernel], f"one call launched {per_call}, not one {kernel}")
+    return per_call, {name: us for name, (_, us) in events.items()}
 
 
 def clocks_under_load(fn, seconds: float = 2.0) -> dict:
@@ -352,30 +411,32 @@ def large_case(st, gen, device) -> float:
     return err
 
 
-def touched_pixels(wm, frames, case, lms) -> int:
-    """Distinct source pixels (frame, y, x) the case's taps reach, from the
-    plain version's own positions: the pixels the warp must read once."""
+def touched_pixels(frames, lms, m: int, mode: str, out: int) -> int:
+    """Distinct source pixels (frame, y, x) the taps reach, from the plain
+    version's own positions (landmarks in frame pixels): the pixels the
+    warp must read once."""
     import torch
 
-    name, _, b, m, mode = case
-    _, h, w, _ = frames.shape
+    from facerecognition_tpu_torch.ops import warp_mxu as wm
+
+    b, h, w, _ = frames.shape
     dev = frames.device
     if mode == "resize":
-        ys = wm.resize_positions(h, 128, dev).floor().long()
-        xs = wm.resize_positions(w, 128, dev).floor().long()
+        ys = wm.resize_positions(h, out, dev).floor().long()
+        xs = wm.resize_positions(w, out, dev).floor().long()
         rows = torch.unique(torch.cat([ys, ys + 1]).clamp(0, h - 1)).numel()
         cols = torch.unique(torch.cat([xs, xs + 1]).clamp(0, w - 1)).numel()
         return b * rows * cols
     if mode == "window":
-        ms, origin, win = wm.window_slots(lms, h, w, 112, 160)
+        ms, origin, win = wm.window_slots(lms, h, w, out, 160)
         region = (win, win)
     else:
-        ms = wm.align_matrices(lms.reshape(-1, 5, 2), 112)
+        ms = wm.align_matrices(lms.reshape(-1, 5, 2), out)
         origin = torch.zeros((b * m, 2), dtype=torch.long, device=dev)
         region = (h, w)
     m00, m01, m02, aa, bb, cc = wm.warp_coefficients(wm.invert_affine(ms)).unbind(1)
-    ii = torch.arange(112, device=dev, dtype=torch.float32)[None, :, None]
-    jj = torch.arange(112, device=dev, dtype=torch.float32)[None, None, :]
+    ii = torch.arange(out, device=dev, dtype=torch.float32)[None, :, None]
+    jj = torch.arange(out, device=dev, dtype=torch.float32)[None, None, :]
     xs = m00[:, None, None] * jj + m01[:, None, None] * ii + m02[:, None, None]
     keys = []
     frame_of = torch.arange(b, device=dev).repeat_interleave(m)[:, None, None]
@@ -391,6 +452,41 @@ def touched_pixels(wm, frames, case, lms) -> int:
     return torch.unique(torch.cat(keys)).numel()
 
 
+def warp_inputs(rng, side: int, b: int, m: int, device):
+    """Smooth uint8 frames and (B, M, 5, 2) face landmarks in frame pixels:
+    faces of 0.2-0.34 of the frame, rotated up to 0.4 rad, anywhere in it."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.ops import warp_mxu as wm
+
+    template = wm.ARCFACE_TEMPLATE - wm.ARCFACE_TEMPLATE.mean(0)
+    coarse = rng.integers(0, 256, (b, side // 8, side // 8, 3))
+    frames = torch.as_tensor(
+        np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2).astype(np.uint8), device=device
+    )
+    ang = rng.uniform(-0.4, 0.4, (b, m))
+    rot = np.stack([np.stack([np.cos(ang), -np.sin(ang)], -1),
+                    np.stack([np.sin(ang), np.cos(ang)], -1)], -2)
+    scale = rng.uniform(0.2, 0.34, (b, m, 1, 1)) * side / 40.0
+    lm = np.einsum("bmij,nj->bmni", rot, template) * scale
+    lm = lm + rng.uniform(0.2 * side, 0.8 * side, (b, m, 1, 2))
+    return frames, torch.as_tensor(lm.astype(np.float32), device=device)
+
+
+def check_slot_parameters(ws, frames, lms, window, det_size) -> None:
+    """The kernel's per-slot prologue gives the plain version's coefficients
+    and origins bit for bit, against the plain version on the card and on
+    the CPU."""
+    import torch
+
+    got = ws.slot_parameters(frames, lms, 112, window, det_size)
+    on_card = ws.slot_parameters_plain(frames.shape, lms, 112, window, det_size)
+    on_cpu = ws.slot_parameters_plain(frames.shape, lms.cpu(), 112, window, det_size)
+    check(torch.equal(got, on_card), "warp_sample prologue differs from the plain version on the card")
+    check(torch.equal(got.cpu(), on_cpu), "warp_sample prologue differs from the plain version on the CPU")
+
+
 def warp_phase(device):
     import numpy as np
     import torch
@@ -400,24 +496,30 @@ def warp_phase(device):
     from facerecognition_tpu_torch.ops import warp_sample as ws
 
     rng = np.random.default_rng(SEED)
-    template = wm.ARCFACE_TEMPLATE - wm.ARCFACE_TEMPLATE.mean(0)
     lines = {}
-    for case in WARP_CASES:
+    for case in WARP_CASES + INPUT_CASES:
         name, side, b, m, mode = case
-        coarse = rng.integers(0, 256, (b, side // 8, side // 8, 3))
-        frames = torch.as_tensor(
-            np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2).astype(np.uint8), device=device
-        )
-        # faces of 0.2-0.34 of the frame, rotated up to 0.4 rad, anywhere in it
-        ang = rng.uniform(-0.4, 0.4, (b, m))
-        rot = np.stack([np.stack([np.cos(ang), -np.sin(ang)], -1),
-                        np.stack([np.sin(ang), np.cos(ang)], -1)], -2)
-        scale = rng.uniform(0.2, 0.34, (b, m, 1, 1)) * side / 40.0
-        lm = np.einsum("bmij,nj->bmni", rot, template) * scale
-        lm = lm + rng.uniform(0.2 * side, 0.8 * side, (b, m, 1, 2))
-        lms = torch.as_tensor(lm.astype(np.float32), device=device)
+        frames, lms = warp_inputs(rng, side, b, m, device)
+        model_input = case in INPUT_CASES
+        window = 160 if mode == "window" else None
+        if model_input:
+            # landmarks in the detector's pixels, some outside the frame
+            lms = lms * (DET_SIZE / side)
+            lms[0, 0, 0] = torch.tensor([-3.0, DET_SIZE + 5.0], device=device)
+        det_size = DET_SIZE if model_input else None
+        if mode != "resize":
+            check_slot_parameters(ws, frames, lms, window, det_size)
+        lms_frame = ws.scale_landmarks(lms, side, side, DET_SIZE) if model_input else lms
         for fast in (True, False):
-            if mode == "resize":
+            if mode == "resize" and model_input:
+                kernel = lambda: ws.detector_input(frames, DET_SIZE, fast)  # noqa: E731
+                plain = lambda: ws.detector_input_plain(frames, DET_SIZE, fast)  # noqa: E731
+            elif model_input:
+                kernel = lambda: ws.embedder_input(frames, lms, DET_SIZE, 112, window, fast)  # noqa: E731
+                plain = lambda: ws.embedder_input_plain(  # noqa: E731
+                    frames, lms, DET_SIZE, 112, window, fast
+                )
+            elif mode == "resize":
                 kernel = lambda: ws.bilinear_resize(frames, 128, 128, fast)  # noqa: E731
                 plain = lambda: wm.bilinear_resize_mxu_batch(frames, 128, 128, fast)  # noqa: E731
             elif mode == "window":
@@ -433,14 +535,15 @@ def warp_phase(device):
                 torch.cuda.synchronize()
                 ref = plain()
                 diff = (got - ref).abs()
-                line = {"case": name, "frames": b, "side": side, "slots": b * m, "fast": fast,
-                        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item()}
+                line = {"case": name, "frames": b, "side": side, "slots": b * max(m, 1),
+                        "fast": fast, "max_abs_err": diff.max().item(),
+                        "mean_abs_err": diff.mean().item()}
                 check(line["max_abs_err"] <= (0.0 if fast else 1e-3),
-                      f"warp_sample {name} fast={fast}: max |Δ| {line['max_abs_err']} levels")
+                      f"warp_sample {name} fast={fast}: max |Δ| {line['max_abs_err']}")
                 line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
                 line["plain_ms"] = cuda_ms(plain, 3, 1)
                 line["library_ms"] = None
-                if mode == "resize" and not fast:
+                if mode == "resize" and not fast and not model_input:
                     x = frames.permute(0, 3, 1, 2).float().contiguous()
                     interp = lambda: torch.nn.functional.interpolate(  # noqa: E731
                         x, size=(128, 128), mode="bilinear", align_corners=False, antialias=False
@@ -451,10 +554,12 @@ def warp_phase(device):
                     line["library_ms"] = statistics.median(cuda_ms(interp, 20) for _ in range(3))
                     line["library_device_us"] = sum(device_us(interp, calls=3).values())
                     x = None
-                moved = got.numel() * 4 + touched_pixels(wm, frames, case, lms) * 3  # uint8 in
+                out = got.shape[1]
+                moved = got.numel() * 4 + touched_pixels(frames, lms_frame, m, mode, out) * 3
+                moved += 0 if mode == "resize" else lms.numel() * 4
                 line["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
                 line["bound_by"] = "bytes"
-                line["device_us"] = device_us(kernel, ("warp_sample",))
+                line["trace"], line["device_us"] = kernel_trace(kernel, "warp_sample")
                 line["plain_device_us"] = sum(device_us(plain, calls=3).values())
             print("warp_sample", json.dumps(line), flush=True)
             lines[(name, fast)] = line
@@ -469,39 +574,44 @@ def detect_phase(device):
     from facerecognition_tpu_torch.ops import detect_post as dp
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    anchors = torch.as_tensor(anchor_centers(128), device=device)
     lines = {}
-    for b, m in DETECT_CASES:
+    for b, side, n_anchors, m in DETECT_CASES + DETECT_CHECKS:
+        anchors = torch.as_tensor(anchor_centers(side)[:n_anchors], device=device)
         raw = torch.randn(b, anchors.shape[0], 15, generator=gen, device=device) * 2.0
         raw[..., 0] *= 4.0
         raw[: b // 2, 40:90, 0] = 25.0  # saturated sigmoids: ties to the lowest anchor
+        raw[1, 7, 0] = float("nan")  # NaN ranks above +inf and is never live
+        raw[2, :, 0] = float("nan")  # no live candidate: every slot invalid
         kernel = lambda: dp.detect_post(raw, anchors, 0.3, m)  # noqa: E731
         plain = lambda: detect_faces_batch(raw, anchors, 0.3, m)  # noqa: E731
         got = kernel()
         torch.cuda.synchronize()
         ref = plain()
-        check(torch.equal(got[3], ref[3]), f"detect_post B={b} M={m}: validity differs")
-        errs = [(x - y).abs().max().item() for x, y in zip(got[:3], ref[:3])]
-        check(max(errs) <= 1e-4, f"detect_post B={b} M={m}: boxes/landmarks/scores differ by {errs}")
-        line = {"B": b, "M": m, "valid_slots": int(got[3].sum()), "max_abs_err": max(errs),
-                "ms": statistics.median(cuda_ms(kernel, 20) for _ in range(3)),
-                "plain_ms": cuda_ms(plain, 3, 1), "library_ms": None}
-        line["bytes"] = detect_post_bytes(raw, anchors, 0.3, m, got)
-        line["bound_ms"] = line["bytes"] / HBM_BYTES_PER_S * 1e3
-        line["bound_by"] = "bytes"
-        line["device_us"] = device_us(kernel, ("detect_post",))
-        line["plain_device_us"] = sum(device_us(plain, calls=3).values())
+        for what, x, y in zip(("boxes", "landmarks", "scores", "validity"), got, ref):
+            check(torch.equal(x, y), f"detect_post B={b} A={anchors.shape[0]} M={m}: {what} differ")
+        check(not bool(got[3][2].any()), "a frame of NaN logits has a valid slot")
+        line = {"B": b, "A": anchors.shape[0], "M": m, "valid_slots": int(got[3].sum()),
+                "max_abs_err": 0.0}
+        line["trace"], line["device_us"] = kernel_trace(kernel, "detect_post")
+        if (b, side, n_anchors, m) in DETECT_CASES:
+            line.update({"ms": statistics.median(cuda_ms(kernel, 20) for _ in range(3)),
+                         "plain_ms": cuda_ms(plain, 3, 1), "library_ms": None})
+            line["bytes"] = detect_post_bytes(raw, anchors, 0.3, m, got)
+            line["bound_ms"] = line["bytes"] / HBM_BYTES_PER_S * 1e3
+            line["bound_by"] = "bytes"
+            line["plain_device_us"] = sum(device_us(plain, calls=3).values())
         print("detect_post", json.dumps(line), flush=True)
         lines[(b, m)] = line
-    # The shared-memory layout lives only in the kernel: it refuses a frame
-    # whose sort does not fit a block, and the wrapper raises.
+    # The launcher plans the warps and shared memory in the kernel's own
+    # source: it refuses a frame that 32 warps cannot hold, and the wrapper
+    # raises.
     big = torch.zeros(1, 40000, 15, device=device)
     try:
         dp.detect_post(big, torch.zeros(40000, 3, device=device), 0.3, 16)
         refused = ""
     except ValueError as err:
         refused = str(err)
-    check("refused" in refused, "detect_post did not refuse 40000 anchors in one block")
+    check("refused" in refused, "detect_post did not refuse 40000 anchors")
     print(f"detect_post refuses 40000 anchors: {refused}", flush=True)
     return lines
 
@@ -682,10 +792,12 @@ def serving_phase(card: str, max_faces: int) -> dict:
     return launches
 
 
-def fused_profile(engine, frames, max_faces: int) -> None:
+def fused_profile(engine, frames, max_faces: int) -> dict:
     """Where one fused call of the serving batch spends device time: every
-    kernel's device µs per call from the profiler's trace, their sum, and
-    the call's wall time (host clock, synchronised)."""
+    kernel's device µs per call from the profiler's trace, their sum, the
+    call's wall time (host clock, synchronised), the host time the device
+    does not cover (wall - device) and the device events per call (kernel
+    launches and copies counted one by one, not by name)."""
     import torch
 
     def call():
@@ -698,15 +810,23 @@ def fused_profile(engine, frames, max_faces: int) -> None:
         call()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    times = device_us(call, calls=3)
+    events = profile_kernels(call, calls=3)
+    check(bool(events), "the profiler's trace holds no device time")
+    times = {name[:60]: us for name, (_, us) in events.items()}
+    device_ms = sum(times.values()) / 1e3
+    copies = sum(n for name, (n, _) in events.items() if name.startswith("Memcpy") or name.startswith("Memset"))
     top = dict(sorted(times.items(), key=lambda kv: -kv[1])[:14])
-    print("fused_profile", json.dumps({
+    line = {
         "max_faces": max_faces, "batch": len(frames), "wall_ms": wall_ms,
-        "device_ms": sum(times.values()) / 1e3, "kernels": len(times), "top_us": top,
+        "device_ms": device_ms, "host_gap_ms": wall_ms - device_ms,
+        "launches_per_call": sum(n for n, _ in events.values()) - copies,
+        "copies_per_call": copies, "kernels": len(times), "top_us": top,
         "ours_us": {k: v for k, v in times.items()
                     if k.split("<")[0] in ("warp_sample", "detect_post", "split_queries",
                                            "topk_partial", "topk_merge")},
-    }), flush=True)
+    }
+    print("fused_profile", json.dumps(line), flush=True)
+    return line
 
 
 T_START = time.perf_counter()
@@ -757,8 +877,7 @@ def main() -> int:
     with phase("crowd"):
         crowd = serving_phase(smi, CROWD_FACES)
 
-    resize = warp[("resize", False)]
-    post = detect[DETECT_CASES[0]]
+    post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
         {
             "name": "stream_topk",
@@ -774,25 +893,38 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
         },
-        {
-            "name": "warp_sample",
-            "design": "four-tap direct sampling of the two-pass function",
-            "case": "resize B=128 256x256 -> 128x128, fast=False",
-            "route": "cuda",
-            "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
-            "replaces": "facerecognition_tpu/ops/warp_mxu.py:57",
-            "launches": crowd["warp_sample"],
-            "max_abs_err": max(line["max_abs_err"] for line in warp.values()),
-            "ms": resize["ms"],
-            "plain_ms": resize["plain_ms"],
-            "bound_ms": resize["bound_ms"],
-            "bound_by": resize["bound_by"],
-            "library_ms": resize["library_ms"],
-        },
+        *(
+            {
+                "name": "warp_sample",
+                "design": WARP_DESIGN,
+                "case": case,
+                "route": "cuda",
+                "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
+                "replaces": replaces,
+                "launches": launches["warp_sample"],
+                "max_abs_err": max(line["max_abs_err"] for line in warp.values()),
+                "ms": warp[key]["ms"],
+                "plain_ms": warp[key]["plain_ms"],
+                "bound_ms": warp[key]["bound_ms"],
+                "bound_by": warp[key]["bound_by"],
+                "library_ms": warp[key]["library_ms"],
+            }
+            for key, case, replaces, launches in (
+                (("resize", False), "resize B=128 256x256 -> 128x128, fast=False",
+                 "facerecognition_tpu/ops/warp_mxu.py:206", crowd),
+                (("detector_input", True), "detector_input B=128 256x256 -> 128x128, fast=True",
+                 "facerecognition_tpu/ops/warp_mxu.py:206", crowd),
+                (("embedder_input", True), "embedder_input align B=128 256x256 -> 112x112, fast=True",
+                 "facerecognition_tpu/ops/warp_mxu.py:249", one_face),
+                (("embedder_input_window", True),
+                 "embedder_input window B=32 x M=4 256x256 -> 112x112, fast=True",
+                 "facerecognition_tpu/ops/warp_mxu.py:264", crowd),
+            )
+        ),
         {
             "name": "detect_post",
-            "design": "one block per frame: bitonic prefilter, greedy NMS in shared memory",
-            "case": f"B={DETECT_CASES[0][0]} M={DETECT_CASES[0][1]}",
+            "design": "one warp per frame: radix-select prefilter, shuffle bitonic sort, greedy NMS in registers",
+            "case": f"B={DETECT_CASES[0][0]} M={DETECT_CASES[0][3]}",
             "route": "cuda",
             "source": "facerecognition_tpu_torch/csrc/detect_post.cu",
             "replaces": "facerecognition_tpu/models/detector_net.py:200",

@@ -23,13 +23,8 @@ from facerecognition_tpu_torch.inference.extract_embeddings import (
 )
 from facerecognition_tpu_torch.models.detector_net import detect_best_face
 from facerecognition_tpu_torch.ops.detect_post import detect_post
-from facerecognition_tpu_torch.ops.image import normalize_imagenet_style
 from facerecognition_tpu_torch.ops.matcher import auto_cosine_topk
-from facerecognition_tpu_torch.ops.warp_sample import (
-    align_crop,
-    align_crop_window,
-    bilinear_resize,
-)
+from facerecognition_tpu_torch.ops.warp_sample import detector_input, embedder_input
 
 MATCH_KERNELS = ("auto", "dense", "stream")
 #: Crowd-path crop window per slot, as the JAX engine's ``_CROWD_WINDOW``:
@@ -182,16 +177,17 @@ class RecognitionEngine:
     def _fused(self, frames: torch.Tensor, k: int, max_faces: int):
         """detect → align → embed → match for a (B, H, W, 3) frame batch on
         the device, ``max_faces`` slots per frame. Returns scores and indices
-        (B, M, k), detector scores (B, M), boxes (B, M, 4) in frame pixels,
-        validity (B, M) and embeddings (B, M, D)."""
+        (B, M, k), detector scores (B, M), boxes (B, M, 4) in the detector's
+        input pixels, validity (B, M) and embeddings (B, M, D). The landmark
+        scale into the frame, the alignment and both models' input
+        normalisation run inside the ``warp_sample`` launches."""
         det = self.detector
         size = self.embedder.config.input_size
         det_size = det.input_size
         bsz, h, w = frames.shape[:3]
         dev = frames.device
         with strict_fp32():
-            small = bilinear_resize(frames, det_size, det_size, True)
-            raw = det.net(small / 127.5 - 1.0)
+            raw = det.net(detector_input(frames, det_size))
             if max_faces == 1:
                 # Greedy NMS's first pick is the score argmax.
                 b1, l1, s1 = detect_best_face(raw, det.anchors)
@@ -201,15 +197,9 @@ class RecognitionEngine:
                 boxes, lms, det_scores, valid = detect_post(
                     raw, det.anchors, det.iou_threshold, max_faces
                 )
-            scale = torch.tensor([w / det_size, h / det_size], device=dev)
-            hi = torch.tensor([w - 1.0, h - 1.0], device=dev)
-            lms = torch.minimum(torch.clamp(lms * scale, min=0.0), hi)
-            boxes = boxes * scale.repeat(2)  # frame-pixel coords
-            if max_faces > 1 and min(h, w) > CROWD_WINDOW:
-                aligned = align_crop_window(frames, lms, size, CROWD_WINDOW, True)
-            else:
-                aligned = align_crop(frames, lms, size, True)
-            emb = self.embedder.model(normalize_imagenet_style(aligned)).float()
+            window = CROWD_WINDOW if max_faces > 1 and min(h, w) > CROWD_WINDOW else None
+            x = embedder_input(frames, lms, det_size, size, window)
+            emb = self.embedder.model(x).float()
         emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
         if self.match_kernel == "stream":
             scores, idx = auto_cosine_topk(
@@ -256,6 +246,10 @@ class RecognitionEngine:
             torch.as_tensor(np.ascontiguousarray(frames), device=self.device), k_eff, max_faces
         )
         scores, idx, det_scores, boxes, valid, emb = (t.cpu().numpy() for t in out)
+        det_size = self.detector.input_size
+        h, w = frames.shape[1:3]
+        # frame-pixel boxes: the float32 product the JAX graph takes
+        boxes = boxes * np.array([w / det_size, h / det_size] * 2, np.float32)
         det_scores = det_scores.astype(np.float64)
         # Platt calibration on the host in float64, as the JAX engine.
         cal = getattr(self.detector, "_calibration", None)

@@ -30,8 +30,29 @@ ARCFACE_TEMPLATE = np.array(
 )
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true division on every device. On the card PyTorch
+    divides by a Python number as a product with its float32 reciprocal,
+    which can round otherwise; a tensor divisor is divided by."""
+    return x / torch.full_like(x, d)
+
+
+def sum_left(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right: ``(x0 + x1) + x2 + ...``. A
+    reduction kernel picks its own order; this one is fixed, so the
+    ``warp_sample`` kernel's prologue can repeat it."""
+    s = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
 def umeyama_batch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Least-squares similarity transforms mapping ``src`` onto ``dst``.
+
+    Every sum over the points is taken left to right and divided by their
+    count (``sum_left``, ``true_div``), so the result is the same bits on
+    the CPU, on the card and in ``csrc/warp_sample.cu``'s prologue.
 
     Args:
       src: (B, N, 2) source landmarks.
@@ -43,28 +64,35 @@ def umeyama_batch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     src = src.float()
     dst = dst.to(src).expand_as(src)
     n = src.shape[-2]
-    mu_src = src.mean(dim=-2)
-    mu_dst = dst.mean(dim=-2)
-    src_c = src - mu_src[..., None, :]
-    dst_c = dst - mu_dst[..., None, :]
+    sx, sy = src[..., 0], src[..., 1]
+    dx, dy = dst[..., 0], dst[..., 1]
+    mu_sx, mu_sy = true_div(sum_left(sx), n), true_div(sum_left(sy), n)
+    mu_dx, mu_dy = true_div(sum_left(dx), n), true_div(sum_left(dy), n)
+    scx, scy = sx - mu_sx[..., None], sy - mu_sy[..., None]
+    dcx, dcy = dx - mu_dx[..., None], dy - mu_dy[..., None]
     # cov[i, j] = mean over points of dst_c[:, i] * src_c[:, j]
-    cov = (dst_c[..., :, None] * src_c[..., None, :]).sum(dim=-3) / n
-    a, b = cov[..., 0, 0], cov[..., 0, 1]
-    c, d = cov[..., 1, 0], cov[..., 1, 1]
+    a = true_div(sum_left(dcx * scx), n)
+    b = true_div(sum_left(dcx * scy), n)
+    c = true_div(sum_left(dcy * scx), n)
+    d = true_div(sum_left(dcy * scy), n)
     cs, sn = a + d, c - b
-    r = torch.sqrt(cs * cs + sn * sn)
+    # A correctly rounded square root on every device: PyTorch's float32
+    # sqrt on the CPU can be an ulp off; rounding a float64 root to float32
+    # cannot (an error below a float64 ulp never crosses a float32 midpoint).
+    r = torch.sqrt((cs * cs + sn * sn).double()).float()
     degenerate = r == 0
     safe_r = torch.where(degenerate, torch.ones_like(r), r)
     cos = torch.where(degenerate, torch.ones_like(r), cs / safe_r)
     sin = torch.where(degenerate, torch.zeros_like(r), sn / safe_r)
-    var_src = (src_c * src_c).sum(dim=-1).mean(dim=-1)
+    var_src = true_div(sum_left(scx * scx + scy * scy), n)
     scale = r / torch.clamp(var_src, min=1e-12)
-    rot = torch.stack(
-        [torch.stack([cos, -sin], -1), torch.stack([sin, cos], -1)], -2
+    l00, l01 = scale * cos, scale * -sin
+    l10, l11 = scale * sin, scale * cos
+    t0 = mu_dx - (l00 * mu_sx + l01 * mu_sy)
+    t1 = mu_dy - (l10 * mu_sx + l11 * mu_sy)
+    return torch.stack(
+        [torch.stack([l00, l01, t0], -1), torch.stack([l10, l11, t1], -1)], -2
     )
-    lin = scale[..., None, None] * rot
-    t = mu_dst - (lin * mu_src[..., None, :]).sum(dim=-1)
-    return torch.cat([lin, t[..., None]], dim=-1)
 
 
 def umeyama(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,10 @@ not Pallas). A vertical 1-D resample followed by a horizontal one, each a
 dense interpolation-matrix product (Catmull & Smith 1980); see the JAX
 module for the derivation. These are the plain versions of the
 ``warp_sample`` kernel (``ops/warp_sample.py``), which computes the same
-function by sampling four source pixels per output pixel; the per-slot
-coefficients, resize positions and crop windows below are shared with it.
+function by sampling four source pixels per output pixel, and computes the
+per-slot coefficients, resize positions and crop windows below itself, in
+the same order of operations (products and sums written out, no matrix
+product or reduction whose order a library picks).
 
 ``fast=True`` mirrors JAX's bf16 operands with float32 results: operands
 are rounded to bf16 and multiplied in float32 (TF32 off), which gives the
@@ -177,6 +179,32 @@ def align_crop_mxu_batch(
     return affine_warp_mxu_batch(images, ms, out_size, out_size, 32, fast)
 
 
+def window_origin(
+    ms: torch.Tensor, h: int, w: int, out_size: int, win: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's crop window from its (k, 2, 3) map onto the template:
+    the (k, 2) int64 window origins (x0, y0) and the (k, 2, 3) maps from the
+    crop. The window is centred on the inverse image of the output centre,
+    rounded half to even, clamped into the (h, w) frame. The products are
+    written out in a fixed order (no matrix product), as the
+    ``warp_sample`` kernel's prologue takes them."""
+    minv = invert_affine(ms)
+    c = (out_size - 1) / 2.0
+    half = (win - 1) / 2.0
+    # centre of the sampled region: minv @ (c, c, 1)
+    cx = minv[:, 0, 0] * c + minv[:, 0, 1] * c + minv[:, 0, 2]
+    cy = minv[:, 1, 0] * c + minv[:, 1, 1] * c + minv[:, 1, 2]
+    x0 = torch.round(cx - half).long().clamp(0, w - win)
+    y0 = torch.round(cy - half).long().clamp(0, h - win)
+    # Cropping moves source coordinates by -origin: dst = A src + t becomes
+    # dst = A src' + (A origin + t).
+    ox, oy = x0.float(), y0.float()
+    ms_c = ms.clone()
+    ms_c[:, 0, 2] = ms[:, 0, 2] + (ms[:, 0, 0] * ox + ms[:, 0, 1] * oy)
+    ms_c[:, 1, 2] = ms[:, 1, 2] + (ms[:, 1, 0] * ox + ms[:, 1, 1] * oy)
+    return torch.stack([x0, y0], 1), ms_c
+
+
 def window_slots(
     landmarks: torch.Tensor, h: int, w: int, out_size: int, window: int
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
@@ -184,25 +212,12 @@ def window_slots(
 
     landmarks (B, M, 5, 2) in frame pixels → (the (B·M, 2, 3) maps from the
     crop onto the template, (B·M, 2) int64 window origins (x0, y0), the
-    window side ``min(window, h, w)``). The window is centred on the inverse
-    image of the output centre, rounded half to even, clamped into the frame.
+    window side ``min(window, h, w)``); see ``window_origin``.
     """
     b, m = landmarks.shape[:2]
     win = min(window, h, w)
     ms = align_matrices(landmarks.reshape(b * m, 5, 2), out_size)
-    minv = invert_affine(ms)
-    ctr = torch.tensor(
-        [(out_size - 1) / 2.0, (out_size - 1) / 2.0, 1.0], device=ms.device
-    )
-    src_ctr = minv @ ctr  # (B·M, 2) centre of the sampled region (x, y)
-    start = torch.round(src_ctr - (win - 1) / 2.0).long()
-    origin = torch.stack(
-        [start[:, 0].clamp(0, w - win), start[:, 1].clamp(0, h - win)], 1
-    )
-    # Cropping moves source coordinates by -origin: dst = A src + t becomes
-    # dst = A src' + (A origin + t).
-    ms_c = ms.clone()
-    ms_c[:, :, 2] += (ms[:, :, :2] @ origin.float()[:, :, None])[:, :, 0]
+    origin, ms_c = window_origin(ms, h, w, out_size, win)
     return ms_c, origin, win
 
 

@@ -1,0 +1,1 @@
+"""Diagnostics for the port's kernels, run on the card."""
