@@ -19,7 +19,14 @@ Phases, each printing its wall seconds:
    reported as medians; the host time of a call, the device time of each of
    the wrapper's kernels from the profiler's trace, and for the first case
    the SM clock and power draw under load (nvidia-smi).
-4. warp: ``warp_sample`` against the two-pass plain version, uint8 frames,
+4. int8: ``int8_topk`` against its plain version on the card, bit for bit,
+   at (128, 1M), (1, 1M) and (32, 100k) (D = 512, k = 5; timed in turns
+   against ``torch._int_mm`` + dequantisation + ``torch.topk``, with the
+   plain time, the bound, the host time and the profiler's device time,
+   and the clock under load for the first), and at ``n_valid`` below the
+   capacity with poisoned padding, k = 1, 7, 16, 32, D = 132, N = 3, a NaN
+   query and a NaN gallery scale, and a 4.3M-row store (2.2 GB).
+5. warp: ``warp_sample`` against the two-pass plain version, uint8 frames,
    ``fast`` on and off: the public functions (the resize 256²→128² and the
    align warp 256²→112² at B = 128, the crowd window warp at B = 32 x M = 4,
    the repeat path at 160² frames) and the model inputs the engine builds
@@ -31,24 +38,31 @@ Phases, each printing its wall seconds:
    exactly one kernel. Max and mean |Δ|, call / plain / library times
    (``interpolate`` for the resize at ``fast=False``), the bound, the
    kernel's device time and the call's trace.
-5. detect_post: the kernel against ``detect_faces_batch`` at B = 128, M = 4
+6. detect_post: the kernel against ``detect_faces_batch`` at B = 128, M = 4
    and 16 (timed), and at 3584 anchors, a prefilter of 512 and K = A = 48
    (checked), on raw outputs with saturated-sigmoid ties and NaN logits:
    boxes, landmarks, scores and validity equal bit for bit, one kernel per
    call, and a 40000-anchor frame refused.
-6. serving: the shipped detector and ArcFace assets on the card, a
+7. serving: the shipped detector and ArcFace assets on the card, a
    100,000-row gallery with each frame's own embedding planted, and 16
    requests through ``MicroBatcher`` from 4 threads with the streaming
    kernel as the matcher, one face per frame. Every top-1 must be its
    planted row; the same frames through the port on the CPU (plain
    versions) must agree.
-7. crowd: the same through ``MicroBatcher(max_faces=4)`` (the window path),
+8. crowd: the same through ``MicroBatcher(max_faces=4)`` (the window path),
    each valid slot's own embedding planted; every planted slot's top-1 is
    its row (or ties it within 1e-6), and the CPU agrees.
+9. serving int8: phase 7 with ``match_kernel="int8"``: the CPU agrees
+   within ``INT8_TOL``, and ``stream_topk`` must not launch.
+10. staged: ``add_to_db``, ``recognize``, ``recognize_batch`` and
+    ``recognize_all`` with the dense, stream and int8 matchers, against the
+    CPU port.
+11. blaze: ``detector_v2_128`` through ``detect_all`` and one fused call
+    (M = 4, int8), against the CPU port.
 
-Phases 6 and 7 are the main paths: every kernel counter is set to 0 just
-before each and read just after, and each kernel of the path must have
-launched; after each, one fused call at B = 128 is profiled
+Phases 7-11 are the paths: every kernel counter is set to 0 just before
+each and read just after, and each kernel of the path must have launched;
+after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
 device does not cover). It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit code
@@ -129,6 +143,28 @@ INPUT_CASES = (
 DETECT_CASES = ((128, 128, None, 4), (128, 128, None, 16))
 DETECT_CHECKS = ((16, 256, None, 16), (8, 128, None, 64), (4, 128, 48, 16))
 PROFILE_BATCH = 128  # the fused call profiled at the serving batch
+# int8_topk: the bound's operations are the int8 tensor cores' (2BND at
+# 1,979 TOP/s, H100 SXM dense), its bytes the codes and scales read once.
+INT8_OPS_PER_S = 1979e12
+INT8_DESIGN = "s8 wgmma (int32 exact), TMA ring of int8 tiles, gallery rows on M"
+INT8_TIMED = ((128, 1_000_000, 512, 5), (1, 1_000_000, 512, 5), (32, 100_000, 512, 5))
+INT8_CHECKS = (  # (B, capacity, n_valid, D, k)
+    (8, 20_000, 12_345, 512, 5),  # n_valid below capacity; the padding rows poisoned
+    (16, 50_000, 50_000, 512, 1),
+    (16, 50_000, 49_999, 512, 7),
+    (40, 50_000, 50_000, 512, 16),
+    (3, 50_000, 50_000, 512, 32),
+    (5, 10_001, 10_001, 132, 7),  # a width that is not a multiple of 16 bytes
+    (4, 3, 3, 512, 3),  # N = 3
+)
+INT8_NAN_CASE = (4, 100_000, 512, 5)  # query 1 holds a NaN, gallery row 7's scale is NaN
+INT8_LARGE_CASE = (4, 4_300_000, 512, 5)  # 2.2 GB of codes: byte offsets past 2^31
+# The two kernels one int8_topk call launches.
+INT8_KERNELS = ("int8_partial", "topk_merge")
+INT8_TOL = 5e-4  # the card against the CPU port: a flipped query code moves a score ~2e-4
+STAGED_FRAMES = 6
+STAGED_ROWS = 2_000
+BLAZE_WEIGHTS = "assets/detector_v2_128.msgpack"
 
 
 class CheckFailed(RuntimeError):
@@ -208,24 +244,31 @@ def profile_kernels(fn, calls: int = 5, attempts: int = 5) -> dict:
     return out
 
 
-def device_us(fn, kernels=None, calls: int = 5) -> dict:
+def device_us(fn, kernels=None, calls: int = 5, attempts: int = 5) -> dict:
     """Device microseconds per call of each kernel ``fn`` launches, by name,
     from the profiler's CUDA trace. Given ``kernels`` (base names), only
-    those, and it fails unless the trace holds each of them; else every
-    kernel, and it fails if the trace holds none."""
-    out = {}
-    for name, (_, us) in profile_kernels(fn, calls).items():
+    those, and it fails unless the trace holds each of them (a window that
+    lacks one, as the tracer now and then drops events, is taken again up
+    to ``attempts`` times); else every kernel, and it fails if the trace
+    holds none."""
+    for attempt in range(attempts):
+        out = {}
+        for name, (_, us) in profile_kernels(fn, calls).items():
+            if kernels is None:
+                name = name[:60]
+            elif name.split("<")[0] not in kernels:
+                continue
+            out[name] = out.get(name, 0.0) + us
         if kernels is None:
-            name = name[:60]
-        elif name.split("<")[0] not in kernels:
-            continue
-        out[name] = out.get(name, 0.0) + us
-    if kernels is None:
-        check(bool(out), "the profiler's trace holds no device time")
-    else:
+            check(bool(out), "the profiler's trace holds no device time")
+            return out
         found = {name.split("<")[0] for name in out}
-        check(found == set(kernels), f"profiler trace holds {sorted(found)}, not {list(kernels)}")
-    return out
+        if found == set(kernels):
+            return out
+        print(f"profiler: window {attempt + 1} of {attempts} held {sorted(found)}, "
+              f"not {list(kernels)}", file=sys.stderr, flush=True)
+        time.sleep(1.0)
+    check(False, f"profiler trace holds {sorted(found)}, not {list(kernels)}")
 
 
 def kernel_trace(fn, kernel: str, calls: int = 5) -> tuple[list, dict]:
@@ -409,6 +452,143 @@ def large_case(st, gen, device) -> float:
     del q, g
     torch.cuda.empty_cache()
     return err
+
+
+def int8_inputs(gen, b: int, cap: int, d: int, device):
+    """Float queries and a quantized store of ``cap`` unit rows, with row
+    cap - 1 a duplicate of row cap // 3 and query 0 that row's direction
+    (the lower index must come first)."""
+    import torch
+
+    from facerecognition_tpu_torch.ops import matcher as m
+
+    q = torch.randn(b, d, generator=gen, device=device)
+    g = torch.nn.functional.normalize(torch.randn(cap, d, generator=gen, device=device), dim=1)
+    gq, gs = m.quantize_embeddings_int8(g)
+    if cap > 2:
+        lo, hi = cap // 3, cap - 1
+        gq[hi], gs[hi] = gq[lo], gs[lo]
+        q[0] = g[lo] * 3.0
+    return q, gq, gs
+
+
+def check_int8(it, q, gq, gs, k: int, n_valid, what: str):
+    """The kernel against the plain version on the card, bit for bit, on the
+    codes (``int8_topk_codes``) and from float queries (``int8_topk``
+    against ``cosine_topk_int8``, whose mask scores rows >= n_valid -inf).
+    NaN scores must sit where the plain version's are. Returns the codes
+    and the kernel's result."""
+    import torch
+
+    from facerecognition_tpu_torch.ops import matcher as m
+
+    qq, qs = it.quantize_queries(q)
+    s, i = it.int8_topk_codes(qq, qs, gq, gs, k, n_valid)
+    torch.cuda.synchronize()
+    rs, ri = it.int8_topk_codes_reference(qq, qs, gq, gs, k, n_valid)
+    fs, fi = it.int8_topk(q, gq, gs, k, n_valid)
+    ms, mi = m.cosine_topk_int8(q, gq, gs, k, n_valid)
+    for (a, ai), (r, rj), how in (((s, i), (rs, ri), "codes"), ((fs, fi), (ms, mi), "float queries")):
+        check(torch.equal(ai, rj), f"int8_topk {what} ({how}): indices differ from plain")
+        nan = torch.isnan(r)
+        check(torch.equal(torch.isnan(a), nan), f"int8_topk {what} ({how}): NaNs differ")
+        check(torch.equal(a[~nan], r[~nan]), f"int8_topk {what} ({how}): scores differ from plain")
+    if n_valid is not None:
+        check(int(i.max()) < n_valid, f"int8_topk {what}: a row past n_valid won")
+    return qq, qs, s, i
+
+
+def int8_phase(device):
+    """``int8_topk`` against its plain version on the card at the timed
+    shapes and the checked edge cases; timings at the timed shapes."""
+    import torch
+
+    from facerecognition_tpu_torch.ops import int8_topk as it
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    r = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=device)
+    main = None
+    for b, n, d, k in INT8_TIMED:
+        q, gq, gs = int8_inputs(gen, b, n, d, device)
+        qq, qs, s, i = check_int8(it, q, gq, gs, k, None, f"B={b} N={n} D={d} k={k}")
+        check(i[0, :2].tolist() == [n // 3, n - 1], f"planted duplicates came back as {i[0, :2].tolist()}")
+        line = {"B": b, "N": n, "D": d, "k": k, "max_abs_err": 0.0, "bit_equal": True}
+        qpad = torch.nn.functional.pad(qq, (0, 0, 0, max(0, 17 - b)))  # _int_mm needs B > 16
+
+        def library():
+            acc = torch._int_mm(qpad, gq.T)[:b]
+            return torch.topk(acc.float() * (qs * r)[:, None] * (gs * r)[None, :], k)
+
+        lib_s, _ = library()
+        check(torch.equal(lib_s, s), "the library yardstick's top scores differ from the kernel's")
+        kernel = lambda: it.int8_topk_codes(qq, qs, gq, gs, k)  # noqa: E731
+        fns = {"kernel": kernel, "library": library}
+        times = {"kernel": [], "library": []}
+        for _ in range(TIMING_ROUNDS):
+            for name in ("library", "kernel", "kernel", "library"):
+                times[name].append(cuda_ms(fns[name], 10))
+        line["ms"] = statistics.median(times["kernel"])
+        line["library_ms"] = statistics.median(times["library"])
+        line["ms_samples"] = times["kernel"]
+        line["library_ms_samples"] = times["library"]
+        line["library"] = "torch._int_mm + dequantisation + torch.topk" + (
+            f" (B padded to 17)" if b <= 16 else "")
+        line["plain_ms"] = cuda_ms(lambda: it.int8_topk_codes_reference(qq, qs, gq, gs, k), 3, 1)
+        line["float_queries_ms"] = cuda_ms(lambda: it.int8_topk(q, gq, gs, k), 10)
+        line["host_us_per_call"] = host_us(kernel)
+        line["device_us"] = device_us(kernel, INT8_KERNELS)
+        bytes_moved = n * (d + 4) + b * (d + 4) + b * k * 8
+        line["bound_bytes_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
+        line["bound_ops_ms"] = 2 * b * n * d / INT8_OPS_PER_S * 1e3
+        line["bound_ms"] = max(line["bound_bytes_ms"], line["bound_ops_ms"])
+        line["bound_by"] = "bytes" if line["bound_bytes_ms"] >= line["bound_ops_ms"] else "operations"
+        if main is None:
+            main = line
+            line["under_load"] = clocks_under_load(kernel)
+        print("int8_topk", json.dumps(line), flush=True)
+        q = gq = gs = qq = qpad = kernel = None
+    for b, cap, n_valid, d, k in INT8_CHECKS:
+        q, gq, gs = int8_inputs(gen, b, cap, d, device)
+        if n_valid < cap:  # rows a mask must hide: each would win if it were read
+            gq[n_valid:] = 127
+            gs[n_valid:] = 1e6
+        check_int8(it, q, gq, gs, k, n_valid, f"B={b} cap={cap} n_valid={n_valid} D={d} k={k}")
+        print("int8_topk", json.dumps({"B": b, "capacity": cap, "n_valid": n_valid, "D": d, "k": k,
+                                       "bit_equal": True}), flush=True)
+    b, n, d, k = INT8_NAN_CASE
+    q, gq, gs = int8_inputs(gen, b, n, d, device)
+    q[1, 3] = float("nan")
+    gs[7] = float("nan")
+    _, _, s, i = check_int8(it, q, gq, gs, k, None, "NaN case")
+    check(i[1].tolist() == list(range(k)), f"NaN query: indices {i[1].tolist()}")
+    check(bool((i[[0, 2, 3], 0] == 7).all()), "the NaN gallery scale must rank first")
+    print("int8_topk", json.dumps({"B": b, "N": n, "D": d, "k": k, "nan": True, "bit_equal": True}),
+          flush=True)
+    int8_large_case(it, gen, device)
+    torch.cuda.empty_cache()
+    return main
+
+
+def int8_large_case(it, gen, device) -> None:
+    """A store of 4.3M rows of 512 codes (2.2 GB): byte offsets past 2^31."""
+    import torch
+
+    b, n, d, k = INT8_LARGE_CASE
+    gq = torch.randint(-127, 128, (n, d), generator=gen, device=device, dtype=torch.int8)
+    gs = torch.rand(n, generator=gen, device=device) * 0.1 + 0.1
+    lo, hi = 123, n - 1
+    gq[hi], gs[hi] = gq[lo], gs[lo]
+    q = torch.randn(b, d, generator=gen, device=device)
+    q[0] = gq[lo].float()
+    q[1] = gq[n - 5].float()
+    _, _, s, i = check_int8(it, q, gq, gs, k, None, f"B={b} N={n} D={d} k={k}")
+    check(i[0, :2].tolist() == [lo, hi], f"planted duplicates came back as {i[0, :2].tolist()}")
+    check(i[1, 0].item() == n - 5, f"a row past 2^31 bytes came back as {i[1, 0].item()}")
+    qq, qs = it.quantize_queries(q)
+    ms = cuda_ms(lambda: it.int8_topk_codes(qq, qs, gq, gs, k), 5)
+    print("int8_topk", json.dumps({"B": b, "N": n, "D": d, "k": k, "store_gb": n * d / 1e9,
+                                   "bit_equal": True, "ms": ms}), flush=True)
+    del gq, gs
 
 
 def touched_pixels(frames, lms, m: int, mode: str, out: int) -> int:
@@ -654,13 +834,29 @@ def detect_post_bytes(raw, anchors, iou_threshold: float, max_faces: int, outs) 
 
 
 def _counters():
-    from facerecognition_tpu_torch.ops import detect_post, stream_topk, warp_sample
+    from facerecognition_tpu_torch.ops import detect_post, int8_topk, stream_topk, warp_sample
 
     return {"stream_topk": stream_topk.launches, "warp_sample": warp_sample.launches,
-            "detect_post": detect_post.launches}
+            "detect_post": detect_post.launches, "int8_topk": int8_topk.launches}
 
 
-def serving_phase(card: str, max_faces: int) -> dict:
+def reset_counters() -> dict:
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    return counters
+
+
+def smooth_frames(rng, n: int, side: int):
+    """Noise upsampled 16x: the warp and the detector see structure rather
+    than pixel noise."""
+    import numpy as np
+
+    coarse = rng.integers(0, 256, (n, side // 16, side // 16, 3))
+    return np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2).astype(np.uint8)
+
+
+def serving_phase(card: str, max_faces: int, match_kernel: str = "stream") -> dict:
     """16 requests through ``MicroBatcher(max_faces=...)`` on the card, each
     detected face's own embedding planted in a 100k gallery; the same frames
     through the port on the CPU must agree. Returns the kernel launches."""
@@ -675,10 +871,7 @@ def serving_phase(card: str, max_faces: int) -> dict:
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
 
     rng = np.random.default_rng(SEED + max_faces)
-    # Smooth random frames: noise upsampled 16x, so the warp and the
-    # detector see structure rather than pixel noise.
-    coarse = rng.integers(0, 256, (N_FRAMES, FRAME[0] // 16, FRAME[1] // 16, 3))
-    frames = np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2).astype(np.uint8)
+    frames = smooth_frames(rng, N_FRAMES, FRAME[0])
     rows = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
     names = [f"id{r:06d}" for r in range(GALLERY_ROWS)]
 
@@ -688,7 +881,7 @@ def serving_phase(card: str, max_faces: int) -> dict:
         gallery = Gallery(512, device=device)
         gallery.add_many(names, rows)
         return RecognitionEngine(
-            embedder, gallery, detector, match_kernel="stream", device=device
+            embedder, gallery, detector, match_kernel=match_kernel, device=device
         )
 
     t0 = time.perf_counter()
@@ -721,9 +914,7 @@ def serving_phase(card: str, max_faces: int) -> dict:
                 results[f] = res
                 latencies.append(time.perf_counter() - t)
 
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
+    counters = reset_counters()
     threads = [
         threading.Thread(target=client, args=(range(c, N_FRAMES, N_CLIENTS),))
         for c in range(N_CLIENTS)
@@ -742,9 +933,12 @@ def serving_phase(card: str, max_faces: int) -> dict:
     if errors:
         raise errors[0]
     check(len(results) == N_FRAMES, f"{len(results)} of {N_FRAMES} answers")
-    path = ("stream_topk", "warp_sample") + (("detect_post",) if max_faces > 1 else ())
+    matcher = "int8_topk" if match_kernel == "int8" else "stream_topk"
+    path = (matcher, "warp_sample") + (("detect_post",) if max_faces > 1 else ())
     for name in path:
         check(launches[name] > 0, f"max_faces={max_faces}: the path launched no {name} kernel")
+    other = "stream_topk" if match_kernel == "int8" else "int8_topk"
+    check(launches[other] == 0, f"match_kernel={match_kernel} launched {other}")
     for f, j in faces:
         check(j < len(results[f]["faces"]), f"frame {f}: face {j} missing when served")
         top = results[f]["faces"][j]["top_k"]
@@ -759,7 +953,8 @@ def serving_phase(card: str, max_faces: int) -> dict:
     stats = batcher.stats()
     print(
         "serving", json.dumps({
-            "card": card, "max_faces": max_faces, "requests": N_FRAMES, "faces": len(faces),
+            "card": card, "max_faces": max_faces, "match_kernel": match_kernel,
+            "requests": N_FRAMES, "faces": len(faces),
             "clients": N_CLIENTS, "batches": stats["batches"], "wall_s": serve_s,
             "latency_ms_p50": lat[(len(lat) - 1) // 2] * 1e3,
             "latency_ms_p99": lat[int(0.99 * (len(lat) - 1))] * 1e3,
@@ -772,7 +967,7 @@ def serving_phase(card: str, max_faces: int) -> dict:
     cpu_engine = build_engine("cpu")
     cpu_engine.gallery.add_many([names[planted[fj]] for fj in faces], own)
     cpu = cpu_engine.fused_recognize_frames(frames, max_faces=max_faces)
-    worst = 1.0
+    worst, worst_score = 1.0, 0.0
     for f, j in faces:
         check(j < len(cpu[f]["faces"]), f"frame {f}: face {j} missing on the CPU")
         card_face, cpu_face = results[f]["faces"][j], cpu[f]["faces"][j]
@@ -784,12 +979,160 @@ def serving_phase(card: str, max_faces: int) -> dict:
             card_face["top_k"][0][0] == cpu_face["top_k"][0][0],
             f"frame {f} face {j}: card top-1 {card_face['top_k'][0]} vs CPU {cpu_face['top_k'][0]}",
         )
+        if match_kernel == "int8":
+            worst_score = max(worst_score, same_top_k(card_face["top_k"], cpu_face["top_k"],
+                                                      INT8_TOL, f"frame {f} face {j}"))
     print(
         f"cpu plain path agrees: min embedding cosine {worst}, "
-        f"{time.perf_counter() - t0:.3f} s", flush=True,
+        + (f"max |score - CPU| {worst_score}, " if match_kernel == "int8" else "")
+        + f"{time.perf_counter() - t0:.3f} s", flush=True,
     )
     fused_profile(engine, np.tile(frames, (PROFILE_BATCH // N_FRAMES, 1, 1, 1)), max_faces)
     return launches
+
+
+def staged_phase(card: str) -> dict:
+    """The staged API on the card against the CPU port: ``add_to_db`` of
+    three identities (two images each), then ``recognize``,
+    ``recognize_batch`` and ``recognize_all`` with the dense, stream and
+    int8 matchers. Identities and top-k names equal; confidences within
+    1e-4 (dense, stream) or ``INT8_TOL`` (int8: a query code can flip).
+    Every kernel the staged path runs must launch."""
+    import numpy as np
+
+    from facerecognition_tpu_torch.inference.engine import RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import (
+        default_arcface_checkpoint,
+        load_arcface_model,
+    )
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+
+    rng = np.random.default_rng(SEED + 11)
+    frames = smooth_frames(rng, STAGED_FRAMES, 160)
+    crowd = smooth_frames(rng, 1, FRAME[0])[0]
+    rows = rng.normal(size=(STAGED_ROWS, 512)).astype(np.float32)
+    names = [f"row{r:05d}" for r in range(STAGED_ROWS)]
+
+    def build(device):
+        engine = RecognitionEngine(
+            load_arcface_model(default_arcface_checkpoint(), device=device),
+            detector=FaceDetector(confidence_threshold=0.0, min_face_size=0, max_faces=4,
+                                  device=device),
+            device=device,
+        )
+        engine.gallery.add_many(names, rows)
+        return engine
+
+    card_engine, cpu_engine = build(None), build("cpu")
+    counters = reset_counters()
+    for e in (card_engine, cpu_engine):
+        for i in range(3):
+            check(e.add_to_db(f"enrolled{i}", [frames[i], frames[i][:, ::-1].copy()]),
+                  f"add_to_db enrolled{i} on {e.device}")
+    for i in range(3):
+        row = card_engine.gallery._index[f"enrolled{i}"]
+        cos = float(card_engine.gallery._store[row] @ cpu_engine.gallery._store[row])
+        check(cos > 0.9999, f"enrolled{i}: card vs CPU mean embedding cosine {cos}")
+    worst = {}
+    for kind in ("dense", "stream", "int8"):
+        tol = INT8_TOL if kind == "int8" else 1e-4
+        out = []
+        for e in (card_engine, cpu_engine):
+            e.match_kernel = kind
+            single = [e.recognize(f, k=5) for f in frames[:3]]
+            batch = e.recognize_batch(list(frames), k=5)
+            crowd_faces = e.recognize_all(crowd, k=5, max_faces=4)["faces"]
+            out.append(single + batch + crowd_faces)
+            for i in range(3):
+                check(single[i]["identity"] == batch[i]["identity"] == f"enrolled{i}",
+                      f"{kind} on {e.device}: frame {i} recognized as {single[i]['identity']}")
+        got, ref = out
+        check(len(got) == len(ref), f"{kind}: {len(got)} results on the card, {len(ref)} on the CPU")
+        err = 0.0
+        for n, (g, r) in enumerate(zip(got, ref)):
+            check(g["identity"] == r["identity"], f"{kind} result {n}: {g['identity']} vs CPU {r['identity']}")
+            check(abs(g["confidence"] - r["confidence"]) <= tol,
+                  f"{kind} result {n}: confidence {g['confidence']} vs CPU {r['confidence']}")
+            err = max(err, same_top_k(g["top_k"], r["top_k"], tol, f"{kind} result {n}"))
+        worst[kind] = err
+    launches = {name: c.count for name, c in counters.items()}
+    for name in ("stream_topk", "int8_topk", "warp_sample", "detect_post"):
+        check(launches[name] > 0, f"the staged path launched no {name} kernel")
+    print("staged", json.dumps({"card": card, "results_per_matcher": len(got),
+                                "max_abs_confidence_diff": worst, "launches": launches}), flush=True)
+    return launches
+
+
+def blaze_phase(card: str) -> dict:
+    """The blaze checkpoint (``detector_v2_128``) on the card: ``detect_all``
+    and one fused call with ``max_faces=4`` and the int8 matcher; boxes
+    within 1e-3 px of the CPU port's, identities equal."""
+    import numpy as np
+
+    from facerecognition_tpu_torch.inference.engine import RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import (
+        default_arcface_checkpoint,
+        load_arcface_model,
+    )
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+
+    rng = np.random.default_rng(SEED + 13)
+    frames = smooth_frames(rng, 8, FRAME[0])
+    rows = rng.normal(size=(STAGED_ROWS, 512)).astype(np.float32)
+    names = [f"row{r:05d}" for r in range(STAGED_ROWS)]
+
+    def build(device):
+        det = FaceDetector(weights=BLAZE_WEIGHTS, confidence_threshold=0.0, min_face_size=0,
+                           max_faces=4, device=device)
+        check(det.arch == "blaze", f"{BLAZE_WEIGHTS} loaded as {det.arch}")
+        engine = RecognitionEngine(load_arcface_model(default_arcface_checkpoint(), device=device),
+                                   detector=det, match_kernel="int8", device=device)
+        engine.gallery.add_many(names, rows)
+        return engine
+
+    card_engine, cpu_engine = build(None), build("cpu")
+    counters = reset_counters()
+    worst = 0.0
+    for f in frames[:3]:
+        got, ref = card_engine.detector.detect_all(f), cpu_engine.detector.detect_all(f)
+        check(len(got) == len(ref) > 0, f"blaze detect_all: {len(got)} faces vs CPU {len(ref)}")
+        for g, r in zip(got, ref):
+            worst = max(worst, float(np.abs(np.subtract(g["bbox"], r["bbox"])).max()))
+    got = card_engine.fused_recognize_frames(frames, k=5, max_faces=4)
+    ref = cpu_engine.fused_recognize_frames(frames, k=5, max_faces=4)
+    for b, (g, r) in enumerate(zip(got, ref)):
+        check(len(g["faces"]) == len(r["faces"]) == 4, f"blaze fused frame {b}: face counts")
+        for gf, rf in zip(g["faces"], r["faces"]):
+            worst = max(worst, float(np.abs(np.subtract(gf["bbox"], rf["bbox"])).max()))
+            check(gf["identity"] == rf["identity"], f"blaze fused frame {b}: identities differ")
+    check(worst <= 1e-3, f"blaze boxes differ from the CPU port by {worst} px")
+    launches = {name: c.count for name, c in counters.items()}
+    for name in ("warp_sample", "detect_post", "int8_topk"):
+        check(launches[name] > 0, f"the blaze path launched no {name} kernel")
+    print("blaze", json.dumps({"card": card, "weights": BLAZE_WEIGHTS, "max_abs_box_px": worst,
+                               "launches": launches}), flush=True)
+    return launches
+
+
+def same_top_k(got, ref, tol: float, what: str) -> float:
+    """Two top-k lists of (name, score): scores within ``tol``, names equal
+    wherever the reference's neighbouring scores are more than ``tol``
+    apart (closer rows may trade places). Returns max |Δscore|."""
+    import numpy as np
+
+    check(len(got) == len(ref), f"{what}: {len(got)} matches vs {len(ref)}")
+    gs = np.array([sc for _, sc in got])
+    rs = np.array([sc for _, sc in ref])
+    err = float(np.abs(gs - rs).max()) if len(rs) else 0.0
+    check(err <= tol, f"{what}: max |score - reference| {err} > {tol}")
+    gap = np.full(len(rs), np.inf)
+    if len(rs) > 1:
+        d = rs[:-1] - rs[1:]
+        gap[:-1] = d
+        gap[1:] = np.minimum(gap[1:], d)
+    for (gn, _), (rn, _), clear in zip(got, ref, gap > tol):
+        check(gn == rn or not clear, f"{what}: {got} vs {ref}")
+    return err
 
 
 def fused_profile(engine, frames, max_faces: int) -> dict:
@@ -817,13 +1160,14 @@ def fused_profile(engine, frames, max_faces: int) -> dict:
     copies = sum(n for name, (n, _) in events.items() if name.startswith("Memcpy") or name.startswith("Memset"))
     top = dict(sorted(times.items(), key=lambda kv: -kv[1])[:14])
     line = {
-        "max_faces": max_faces, "batch": len(frames), "wall_ms": wall_ms,
+        "max_faces": max_faces, "match_kernel": engine.match_kernel, "batch": len(frames),
+        "wall_ms": wall_ms,
         "device_ms": device_ms, "host_gap_ms": wall_ms - device_ms,
         "launches_per_call": sum(n for n, _ in events.values()) - copies,
         "copies_per_call": copies, "kernels": len(times), "top_us": top,
         "ours_us": {k: v for k, v in times.items()
                     if k.split("<")[0] in ("warp_sample", "detect_post", "split_queries",
-                                           "topk_partial", "topk_merge")},
+                                           "topk_partial", "topk_merge", "int8_partial")},
     }
     print("fused_profile", json.dumps(line), flush=True)
     return line
@@ -852,7 +1196,7 @@ def main() -> int:
         print(f"torch {torch.__version__} CUDA {torch.version.cuda}: {card}", flush=True)
 
     with phase("build"):
-        for built in _build.build(["stream_topk", "warp_sample", "detect_post"]):
+        for built in _build.build(["stream_topk", "warp_sample", "detect_post", "int8_topk"]):
             print(f"{built.name}: nvcc {built.seconds:.2f} s -> {built.path}", flush=True)
             for line in built.log.splitlines():
                 entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -865,6 +1209,9 @@ def main() -> int:
     with phase("kernels"):
         max_err, main_case = kernel_phase(device)
 
+    with phase("int8"):
+        int8_main = int8_phase(device)
+
     with phase("warp"):
         warp = warp_phase(device)
 
@@ -876,6 +1223,15 @@ def main() -> int:
 
     with phase("crowd"):
         crowd = serving_phase(smi, CROWD_FACES)
+
+    with phase("serving int8"):
+        int8_serving = serving_phase(smi, 1, "int8")
+
+    with phase("staged"):
+        staged = staged_phase(smi)
+
+    with phase("blaze"):
+        blaze = blaze_phase(smi)
 
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
@@ -936,8 +1292,25 @@ def main() -> int:
             "bound_by": post["bound_by"],
             "library_ms": None,
         },
+        {
+            "name": "int8_topk",
+            "design": INT8_DESIGN,
+            "case": "B={B} N={N} D={D} k={k}".format(**int8_main),
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/int8_topk.cu",
+            "replaces": "facerecognition_tpu/ops/matcher.py:232",
+            "launches": int8_serving["int8_topk"],
+            "max_abs_err": 0.0,
+            "ms": int8_main["ms"],
+            "plain_ms": int8_main["plain_ms"],
+            "bound_ms": int8_main["bound_ms"],
+            "bound_by": int8_main["bound_by"],
+            "library_ms": int8_main["library_ms"],
+        },
     ]
     print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
+    print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}",
+          flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

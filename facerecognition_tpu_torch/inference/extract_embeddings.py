@@ -22,6 +22,20 @@ from facerecognition_tpu_torch.ops.matcher import l2_normalize
 from facerecognition_tpu_torch.preprocessing.face_detector import ASSETS_DIR
 from facerecognition_tpu_torch.utils.serialization import load_variables
 
+#: Batch sizes the JAX package pads its device batches to (one compiled
+#: graph per bucket); the port pads the staged path's warp batch alike.
+BATCH_BUCKETS = (1, 8, 32, 128, 512)
+
+
+def batch_bucket(n: int) -> int:
+    """The smallest bucket that holds ``n``; above the largest, a multiple
+    of it."""
+    for b in BATCH_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // BATCH_BUCKETS[-1]) * BATCH_BUCKETS[-1]
+
+
 #: Shipped ArcFace serving checkpoints in preference order (same chain as
 #: the JAX package: the ultraslim (1,1,1,1) backbone is the default).
 DEFAULT_ARCFACE_CHECKPOINTS = (

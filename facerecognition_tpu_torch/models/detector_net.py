@@ -1,7 +1,9 @@
-"""Single-stage face detector: the DenseDetNet backbone, anchors and decode.
+"""Single-stage face detector: the two backbones, anchors and decode.
 
-Counterpart of ``facerecognition_tpu/models/detector_net.py`` (the ``dense``
-arch, shipped as ``assets/detector_v4_128.msgpack``), and the post-process:
+Counterpart of ``facerecognition_tpu/models/detector_net.py``: the ``dense``
+arch (``DenseDetNet``, shipped as ``assets/detector_v4_128.msgpack``), the
+``blaze`` arch (``BlazeFaceNet``, the older ``detector_v2_128`` and
+``detector_synthetic_128`` checkpoints), and the post-process:
 the one-face argmax decode and the crowd path's decode → top-K → NMS (whose
 card version is the ``ops.detect_post`` kernel). Input and output keep
 the JAX layout: (B, S, S, 3) normalized NHWC → (B, A, 15) raw predictions,
@@ -78,16 +80,67 @@ class DenseDetNet(nn.Module):
         return torch.cat([out1, out2], dim=1)
 
 
-DETECTOR_ARCHS = {"dense": DenseDetNet}
+class BlazeBlock(nn.Module):
+    """Depthwise 5x5 (``groups=cin``, symmetric padding 2) + pointwise 1x1,
+    plus a shortcut: a 2x2 max-pool at stride 2 when the block strides, then
+    zero channels up to ``features``; ReLU of the sum."""
+
+    def __init__(self, cin: int, features: int, strides: int = 1):
+        super().__init__()
+        self.strides = strides
+        self.extra = features - cin
+        self.dw = nn.Conv2d(cin, cin, 5, stride=strides, padding=2, groups=cin)
+        self.pw = nn.Conv2d(cin, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.pw(self.dw(x))
+        if self.strides == 2:
+            x = F.max_pool2d(x, 2, 2)
+        if self.extra:
+            x = F.pad(x, (0, 0, 0, 0, 0, self.extra))
+        return F.relu(x + y)
+
+
+class BlazeFaceNet(nn.Module):
+    """BlazeFace-style backbone (depthwise blocks) with the same two heads
+    and the same input/output contract as ``DenseDetNet``."""
+
+    # (name, features, stride) of each block after the stem
+    BLOCKS = (
+        ("b1", 24, 1), ("b2", 28, 1), ("b3", 32, 2), ("b4", 36, 1), ("b5", 42, 1),
+        ("b6", 48, 2), ("b7", 56, 1), ("b8", 64, 1),  # S/8: small faces
+        ("b9", 88, 2), ("b10", 96, 1), ("b11", 96, 1),  # S/16: large faces
+    )
+
+    def __init__(self):
+        super().__init__()
+        self.stem = nn.Conv2d(3, 24, 5, stride=2, padding=2)  # S/2
+        cin = 24
+        for name, features, stride in self.BLOCKS:
+            setattr(self, name, BlazeBlock(cin, features, stride))
+            cin = features
+        self.head1 = nn.Conv2d(64, 2 * 15, 1)
+        self.head2 = nn.Conv2d(96, 6 * 15, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float().permute(0, 3, 1, 2)
+        x = F.relu(self.stem(x))
+        for name, _, _ in self.BLOCKS:
+            x = getattr(self, name)(x)
+            if name == "b8":
+                f1 = x
+        b = x.shape[0]
+        # NHWC before the reshape keeps the flax anchor order (y, x, anchor).
+        out1 = self.head1(f1).permute(0, 2, 3, 1).reshape(b, -1, 15)
+        out2 = self.head2(x).permute(0, 2, 3, 1).reshape(b, -1, 15)
+        return torch.cat([out1, out2], dim=1)
+
+
+DETECTOR_ARCHS = {"blaze": BlazeFaceNet, "dense": DenseDetNet}
 
 
 def build_detector_net(arch: str = "dense") -> nn.Module:
     """Detector backbone by the checkpoint's ``arch`` name."""
-    if arch == "blaze":
-        raise NotImplementedError(
-            "BlazeFaceNet (the older detector checkpoints) is not ported yet "
-            "(ROADMAP Queue 1, detector item); use the dense v4 checkpoint"
-        )
     try:
         return DETECTOR_ARCHS[arch]()
     except KeyError:

@@ -1,12 +1,22 @@
-"""Image ops of the serving path: cv2-convention resizes and normalize.
+"""Image ops: cv2-convention resizes, the exact gather warp, crops, color.
 
 Counterpart of ``facerecognition_tpu/ops/image.py``. Layout stays channel
-last (HWC / NHWC) at the public functions, as in the JAX package.
+last (HWC / NHWC) at the public functions, as in the JAX package. The
+staged API aligns faces with the exact gather warp here (``align_crop``);
+the fused serving path takes the two-pass function of ``ops.warp_mxu``
+(its kernel is ``ops.warp_sample``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from facerecognition_tpu_torch.ops.umeyama import (
+    ARCFACE_TEMPLATE,
+    fma,
+    invert_affine,
+    umeyama,
+)
 
 
 def bilinear_resize(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -90,6 +100,85 @@ def bilinear_resize_u8(image: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
     r1 = rows[(sy + 1).clamp(0, h - 1)] >> 4
     v = ((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16)
     return ((v + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+def _gather_bilinear(
+    img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, mode: str = "constant"
+) -> torch.Tensor:
+    """Sample ``img`` (H, W, C) at float positions ``xs``/``ys`` (out_h,
+    out_w) by bilinear interpolation. ``mode``: ``"constant"`` (taps outside
+    the image read 0, cv2.BORDER_CONSTANT) or ``"edge"`` (clamped,
+    cv2.BORDER_REPLICATE)."""
+    h, w = img.shape[0], img.shape[1]
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    wx = (xs - x0)[..., None]
+    wy = (ys - y0)[..., None]
+    x0i, y0i = x0.long(), y0.long()
+
+    def tap(yi, xi):
+        vals = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        if mode == "edge":
+            return vals
+        valid = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))[..., None]
+        return torch.where(valid, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+    top = tap(y0i, x0i) * (1.0 - wx) + tap(y0i, x0i + 1) * wx
+    bot = tap(y0i + 1, x0i) * (1.0 - wx) + tap(y0i + 1, x0i + 1) * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def affine_warp(image: torch.Tensor, m: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Warp ``image`` (H, W, C) by the forward affine ``m`` (2, 3) into
+    (out_h, out_w, C), as ``cv2.warpAffine`` with INTER_LINEAR and a zero
+    border: output pixel (x, y) samples the input at ``m^-1 (x, y)``. The
+    sample positions are ``m00 x + m01 y + m02`` with the first product and
+    the second fused into one rounding, as XLA on the CPU contracts them."""
+    img = image.float()
+    minv = invert_affine(m.float())
+    dev = img.device
+    ys = torch.arange(out_h, device=dev, dtype=torch.float32)[:, None].expand(out_h, out_w)
+    xs = torch.arange(out_w, device=dev, dtype=torch.float32)[None, :].expand(out_h, out_w)
+    src_x = fma(minv[0, 0], xs, minv[0, 1] * ys) + minv[0, 2]
+    src_y = fma(minv[1, 0], xs, minv[1, 1] * ys) + minv[1, 2]
+    return _gather_bilinear(img, src_x, src_y)
+
+
+def align_crop(image: torch.Tensor, landmarks: torch.Tensor, out_size: int = 112) -> torch.Tensor:
+    """5-point alignment of one face: the Umeyama similarity from
+    ``landmarks`` (5, 2) in (x, y) pixels onto the ArcFace template scaled
+    to ``out_size``, then the exact gather warp."""
+    template = torch.as_tensor(ARCFACE_TEMPLATE, device=image.device) * (out_size / 112.0)
+    m = umeyama(landmarks.float(), template)
+    return affine_warp(image, m, out_size, out_size)
+
+
+def crop_with_margin(
+    image: torch.Tensor, bbox: torch.Tensor, margin: float = 0.2, target_size: int = 112
+) -> torch.Tensor:
+    """Crop ``bbox`` [x1, y1, x2, y2] with a relative ``margin`` on each side
+    and resize it to ``target_size``², out-of-image area zero: an affine warp
+    with cv2.resize's half-pixel sample centres."""
+    bbox = bbox.float()
+    x1, y1, x2, y2 = bbox[0], bbox[1], bbox[2], bbox[3]
+    bw, bh = x2 - x1, y2 - y1
+    mx, my = bw * margin, bh * margin
+    cx1, cy1 = x1 - mx, y1 - my
+    cw, ch = bw + 2.0 * mx, bh + 2.0 * my
+    sx = target_size / torch.clamp(cw, min=1e-6)
+    sy = target_size / torch.clamp(ch, min=1e-6)
+    zero = torch.zeros_like(sx)
+    m = torch.stack([
+        torch.stack([sx, zero, -cx1 * sx + 0.5 * sx - 0.5]),
+        torch.stack([zero, sy, -cy1 * sy + 0.5 * sy - 0.5]),
+    ])
+    return affine_warp(image, m, target_size, target_size)
+
+
+def rgb_to_grayscale(image: torch.Tensor) -> torch.Tensor:
+    """ITU-R BT.601 luma (the weights of ``cv2.COLOR_RGB2GRAY``)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=image.device)
+    return image.float() @ w
 
 
 def normalize_imagenet_style(

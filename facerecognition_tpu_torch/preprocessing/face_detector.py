@@ -25,6 +25,7 @@ from facerecognition_tpu_torch.models.detector_net import (
 )
 from facerecognition_tpu_torch.ops.detect_post import detect_post
 from facerecognition_tpu_torch.ops.image import bilinear_resize
+from facerecognition_tpu_torch.utils.imageio import load_image
 from facerecognition_tpu_torch.utils.serialization import load_variables
 
 #: Shipped checkpoints in preference order (same chain as the JAX package).
@@ -70,32 +71,30 @@ def load_detector_checkpoint(
     return arch, variables, cal
 
 
-def _as_rgb_uint8(image) -> np.ndarray:
-    """An image array as RGB uint8 HWC, as the JAX ``load_image`` takes an
-    array: gray is stacked to three channels, alpha dropped, floats in
-    [0, 1] scaled by 255, then clipped and cast."""
-    if not isinstance(image, np.ndarray):
-        raise TypeError(
-            f"expected an image array, got {type(image).__name__}; the port "
-            "reads no image files"
-        )
-    arr = image
-    if arr.ndim == 2:
-        arr = np.stack([arr] * 3, axis=-1)
-    elif arr.ndim == 3 and arr.shape[2] == 4:
-        arr = arr[:, :, :3]
-    if arr.dtype == np.uint8:
-        return arr
-    if np.issubdtype(arr.dtype, np.floating) and arr.max() <= 1.0 + 1e-6:
-        arr = arr * 255.0
-    return np.clip(arr, 0, 255).astype(np.uint8)
+def random_blaze_net(seed: int = 0) -> torch.nn.Module:
+    """A randomly initialised ``BlazeFaceNet`` (on the CPU), drawn from a
+    ``torch.Generator`` seeded with ``seed``: flax's initialisers' family
+    (LeCun-normal kernels, variance 1 / fan-in; zero biases), not flax's
+    numbers, which come from JAX's PRNG."""
+    gen = torch.Generator().manual_seed(seed)
+    net = build_detector_net("blaze")
+    with torch.no_grad():
+        for conv in net.modules():
+            if isinstance(conv, torch.nn.Conv2d):
+                fan_in = conv.weight[0].numel()
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / fan_in**0.5)
+                conv.bias.zero_()
+    return net
 
 
 class FaceDetector:
     """Detector net + anchors + thresholds on one device.
 
     ``weights``: checkpoint path or loaded variables; ``None`` takes the
-    best shipped checkpoint. ``device=None`` means the CUDA card.
+    best shipped checkpoint at ``input_size`` 128 and, at any other size
+    (the shipped checkpoints are 128²) or without one, a random-init
+    ``BlazeFaceNet`` (``random_blaze_net()``, seed 0), as the JAX detector
+    builds one there from ``PRNGKey(0)``. ``device=None`` means the CUDA card.
     ``iou_threshold`` and ``max_faces`` set the NMS of ``detect_all`` (the
     fused engine takes its own ``max_faces`` and this ``iou_threshold``).
     """
@@ -118,20 +117,15 @@ class FaceDetector:
         self.input_size = input_size
         self.iou_threshold = iou_threshold
         self.max_faces = max_faces
-        if weights is None:
-            if input_size != 128:
-                # The JAX detector builds a random-init BlazeFaceNet here.
-                raise NotImplementedError(
-                    f"input_size={input_size} without weights needs a random-init "
-                    "BlazeFaceNet, which is not ported yet (ROADMAP Queue 1); the "
-                    "shipped checkpoints are 128x128"
-                )
+        if weights is None and input_size == 128:
             weights = default_detector_checkpoint()
-            if weights is None:
-                raise FileNotFoundError(f"no detector checkpoint in {ASSETS_DIR}")
-        self.arch, variables, self._calibration = load_detector_checkpoint(weights)
-        net = build_detector_net(self.arch)
-        load_flax_variables(net, variables)
+        if weights is None:
+            self.arch, self._calibration = "blaze", None
+            net = random_blaze_net()
+        else:
+            self.arch, variables, self._calibration = load_detector_checkpoint(weights)
+            net = build_detector_net(self.arch)
+            load_flax_variables(net, variables)
         self.net = net.to(self.device).eval()
         self.anchors = torch.as_tensor(anchor_centers(input_size), device=self.device)
 
@@ -167,7 +161,7 @@ class FaceDetector:
         """All faces above the confidence threshold and minimum size, in NMS
         order (score descending): dicts of ``bbox``, ``landmarks``,
         ``confidence``."""
-        boxes, lms, scores, valid = self._run(_as_rgb_uint8(image))
+        boxes, lms, scores, valid = self._run(load_image(image))
         out = []
         for i in range(len(scores)):
             if not valid[i] or scores[i] < self.confidence_threshold:

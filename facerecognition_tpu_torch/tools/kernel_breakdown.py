@@ -1,4 +1,4 @@
-"""Where the time of ``detect_post`` and ``warp_sample`` goes, on the card.
+"""Where the time of ``detect_post``, ``warp_sample`` and ``int8_topk`` goes, on the card.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -13,7 +13,12 @@ It builds patched copies of the kernels' sources into the build directory
 - ``warp_sample``: the device time (profiler) of the align warp (B = 128,
   256² → 112²) and the window warp (B = 32 x M = 4) as built, with the
   per-slot solve replaced by a read of precomputed parameters, and with
-  every tile read from global memory instead of the stage.
+  every tile read from global memory instead of the stage;
+- ``int8_topk``: the device time (profiler) of one call at the timed
+  shapes of ``chip_smoke.py`` as built and with one of its choices undone
+  each: the fold loading one score-tile row at a time, a consumer waiting
+  for each stage's wgmmas before the next; taken in turns (each variant,
+  then each again in reverse order).
 
 Each patch asserts the text it replaces, so a kernel that changed shape
 fails here loudly instead of measuring something else.
@@ -31,6 +36,8 @@ import torch
 from facerecognition_tpu_torch import _build
 from facerecognition_tpu_torch.models.detector_net import anchor_centers
 from facerecognition_tpu_torch.ops import detect_post as dp
+from facerecognition_tpu_torch.ops import int8_topk as it
+from facerecognition_tpu_torch.ops import matcher
 from facerecognition_tpu_torch.ops import warp_mxu, warp_sample as ws
 
 SOURCE_DIR = _build.CSRC_DIR
@@ -158,12 +165,42 @@ def warp_variants(device) -> dict:
     return out
 
 
+INT8_SHAPES = ((128, 1_000_000, 512, 5), (1, 1_000_000, 512, 5), (32, 100_000, 512, 5))
+
+
+def int8_variants(device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = {}
+    for b, n, d, k in INT8_SHAPES:
+        q = torch.randn(b, d, generator=gen, device=device)
+        g = torch.nn.functional.normalize(torch.randn(n, d, generator=gen, device=device), dim=1)
+        cases[f"B={b} N={n}"] = (*it.quantize_queries(q), *matcher.quantize_embeddings_int8(g), k)
+    variants = {
+        "as built": [],
+        "fold one row a load": [("      if (rows == WG_ROWS) {", "      if (false) {")],
+        "wait for each stage's wgmmas": [(
+            "      if (prev >= 0) {\n        wgmma_wait_one();",
+            "      if (prev >= 0) {\n        wgmma_wait_all();")],
+    }
+    times = {name: {case: [] for case in cases} for name in variants}
+    for name in list(variants) + list(variants)[::-1]:  # in turns
+        _patched("int8_" + name.replace(" ", "_"), "int8_topk.cu", variants[name])
+        try:
+            for case, args in cases.items():
+                times[name][case].append(_device_us(lambda a=args: it.int8_topk_codes(*a)))
+        finally:
+            _restore()
+    return {name: {case: statistics.median(v) for case, v in by_case.items()}
+            for name, by_case in times.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_breakdown: no CUDA device")
     device = torch.device("cuda", 0)
     print("detect_post cycles per phase", json.dumps(detect_post_phases(device)), flush=True)
     print("warp_sample device us", json.dumps(warp_variants(device)), flush=True)
+    print("int8_topk device us", json.dumps(int8_variants(device)), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import torch
 
 from facerecognition_tpu.models.arcface import ArcFaceModel as JArcFace
 from facerecognition_tpu.models.detector_net import (
+    BlazeFaceNet as JBlazeFaceNet,
     DenseDetNet as JDenseDetNet,
     anchor_centers as j_anchor_centers,
     decode_predictions as j_decode,
@@ -67,8 +68,11 @@ def test_detector_checkpoint_markers(detector_assets):
     assert sum(p.numel() for p in det.net.parameters()) == 575_240
     arch, variables, cal = load_detector_checkpoint({"params": {}})
     assert arch == "blaze" and cal is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detector_net("blaze")
+    blaze = build_detector_net("blaze")
+    flax_vars = JBlazeFaceNet().init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)))
+    assert sum(p.numel() for p in blaze.parameters()) == sum(
+        v.size for v in jax.tree_util.tree_leaves(flax_vars)
+    ) == 63_494
 
 
 def test_anchor_centers_match():

@@ -148,9 +148,15 @@ def test_u8_resize_is_cv2_at_other_shapes(shape, out):
 
 def test_detector_without_weights_at_other_sizes_names_blazeface():
     """JAX builds a random-init BlazeFaceNet there; the port must not load
-    the 128² checkpoint for another input size."""
-    with pytest.raises(NotImplementedError, match="BlazeFaceNet"):
-        FaceDetector(input_size=96, device="cpu")
+    the 128² checkpoint for another input size, and builds a seeded
+    random-init BlazeFaceNet with that size's anchors instead."""
+    det = FaceDetector(input_size=96, device="cpu")
+    assert det.arch == "blaze" and det._calibration is None
+    assert type(det.net).__name__ == "BlazeFaceNet"
+    assert det.anchors.shape == (504, 3)  # 12² · 2 + 6² · 6
+    with torch.no_grad():
+        assert det.net(torch.zeros(1, 96, 96, 3)).shape == (1, 504, 15)
+    assert det.detect_all(np.zeros((96, 96, 3), np.uint8)) is not None
     assert FaceDetector(input_size=128, device="cpu").input_size == 128
 
 
