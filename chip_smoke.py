@@ -19,13 +19,20 @@ Phases, each printing its wall seconds:
    reported as medians; the host time of a call, the device time of each of
    the wrapper's kernels from the profiler's trace, and for the first case
    the SM clock and power draw under load (nvidia-smi).
-4. int8: ``int8_topk`` against its plain version on the card, bit for bit,
-   at (128, 1M), (1, 1M) and (32, 100k) (D = 512, k = 5; timed in turns
+4. int8: ``int8_quantize`` against ``quantize_queries`` on the card, codes
+   and scales bit for bit, at D = 96, 128, 132 and 512 with zero, NaN, ±inf,
+   subnormal, overflowing and exact-.5 rows; ``int8_topk`` against its plain
+   version on the card, bit for bit, from codes and from float queries (one
+   call, three kernels: the trace and the launch count are checked), at
+   (128, 1M), (1, 1M), (32, 100k) and the int8 fused call's (128, 100k)
+   (D = 512, k = 5; timed in turns
    against ``torch._int_mm`` + dequantisation + ``torch.topk``, with the
-   plain time, the bound, the host time and the profiler's device time,
-   and the clock under load for the first), and at ``n_valid`` below the
-   capacity with poisoned padding, k = 1, 7, 16, 32, D = 132, N = 3, a NaN
-   query and a NaN gallery scale, and a 4.3M-row store (2.2 GB).
+   plain time, the bound, the host time, the profiler's device time from
+   codes and from float queries, and the clock under load for the first),
+   at ``n_valid`` below the capacity with poisoned padding, k = 1, 7, 16,
+   32, D = 132, N = 3, a NaN query and a NaN gallery scale, a 4.3M-row
+   store (2.2 GB), and a 1M-row gallery whose scores rise with the row (the
+   threshold filter's worst case: every row enters every list), timed.
 5. warp: ``warp_sample`` against the two-pass plain version, uint8 frames,
    ``fast`` on and off: the public functions (the resize 256²→128² and the
    align warp 256²→112² at B = 128, the crowd window warp at B = 32 x M = 4,
@@ -53,7 +60,9 @@ Phases, each printing its wall seconds:
    each valid slot's own embedding planted; every planted slot's top-1 is
    its row (or ties it within 1e-6), and the CPU agrees.
 9. serving int8: phase 7 with ``match_kernel="int8"``: the CPU agrees
-   within ``INT8_TOL``, and ``stream_topk`` must not launch.
+   within ``INT8_TOL``, and ``stream_topk`` must not launch. Then the
+   one-face fused calls of phases 7 and 9 at B = 128 are timed in
+   alternating turns (5 rounds of 10 calls each, wall medians).
 10. staged: ``add_to_db``, ``recognize``, ``recognize_batch`` and
     ``recognize_all`` with the dense, stream and int8 matchers, against the
     CPU port.
@@ -146,8 +155,10 @@ PROFILE_BATCH = 128  # the fused call profiled at the serving batch
 # int8_topk: the bound's operations are the int8 tensor cores' (2BND at
 # 1,979 TOP/s, H100 SXM dense), its bytes the codes and scales read once.
 INT8_OPS_PER_S = 1979e12
-INT8_DESIGN = "s8 wgmma (int32 exact), TMA ring of int8 tiles, gallery rows on M"
-INT8_TIMED = ((128, 1_000_000, 512, 5), (1, 1_000_000, 512, 5), (32, 100_000, 512, 5))
+INT8_DESIGN = ("query normalise + quantize kernel; s8 wgmma (int32 exact), a TMA ring of int8 "
+               "tiles per ping-pong consumer, register epilogue filtered by each query's k-th key")
+INT8_TIMED = ((128, 1_000_000, 512, 5), (1, 1_000_000, 512, 5), (32, 100_000, 512, 5),
+              (128, 100_000, 512, 5))  # the last: the int8 fused call's match
 INT8_CHECKS = (  # (B, capacity, n_valid, D, k)
     (8, 20_000, 12_345, 512, 5),  # n_valid below capacity; the padding rows poisoned
     (16, 50_000, 50_000, 512, 1),
@@ -159,8 +170,11 @@ INT8_CHECKS = (  # (B, capacity, n_valid, D, k)
 )
 INT8_NAN_CASE = (4, 100_000, 512, 5)  # query 1 holds a NaN, gallery row 7's scale is NaN
 INT8_LARGE_CASE = (4, 4_300_000, 512, 5)  # 2.2 GB of codes: byte offsets past 2^31
-# The two kernels one int8_topk call launches.
-INT8_KERNELS = ("int8_partial", "topk_merge")
+INT8_RISING_CASE = (128, 1_000_000, 512, 5)  # scores rise with the row: every row enters
+INT8_QUANTIZE_WIDTHS = (96, 128, 132, 512)
+# The three kernels one int8_topk call launches; from codes, the last two.
+INT8_KERNELS = ("int8_quantize", "int8_partial", "topk_merge")
+INT8_CODES_KERNELS = INT8_KERNELS[1:]
 INT8_TOL = 5e-4  # the card against the CPU port: a flipped query code moves a score ~2e-4
 STAGED_FRAMES = 6
 STAGED_ROWS = 2_000
@@ -507,6 +521,8 @@ def int8_phase(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     r = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=device)
+    for d in INT8_QUANTIZE_WIDTHS:
+        int8_quantize_case(it, gen, d, device)
     main = None
     for b, n, d, k in INT8_TIMED:
         q, gq, gs = int8_inputs(gen, b, n, d, device)
@@ -534,9 +550,12 @@ def int8_phase(device):
         line["library"] = "torch._int_mm + dequantisation + torch.topk" + (
             f" (B padded to 17)" if b <= 16 else "")
         line["plain_ms"] = cuda_ms(lambda: it.int8_topk_codes_reference(qq, qs, gq, gs, k), 3, 1)
-        line["float_queries_ms"] = cuda_ms(lambda: it.int8_topk(q, gq, gs, k), 10)
+        floats = lambda: it.int8_topk(q, gq, gs, k)  # noqa: E731
+        line["float_queries_ms"] = cuda_ms(floats, 10)
         line["host_us_per_call"] = host_us(kernel)
-        line["device_us"] = device_us(kernel, INT8_KERNELS)
+        line["float_queries_host_us_per_call"] = host_us(floats)
+        line["device_us"] = device_us(kernel, INT8_CODES_KERNELS)
+        line["float_queries_device_us"] = device_us(floats, INT8_KERNELS)
         bytes_moved = n * (d + 4) + b * (d + 4) + b * k * 8
         line["bound_bytes_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
         line["bound_ops_ms"] = 2 * b * n * d / INT8_OPS_PER_S * 1e3
@@ -545,8 +564,9 @@ def int8_phase(device):
         if main is None:
             main = line
             line["under_load"] = clocks_under_load(kernel)
+            int8_one_call(it, floats)
         print("int8_topk", json.dumps(line), flush=True)
-        q = gq = gs = qq = qpad = kernel = None
+        q = gq = gs = qq = qpad = kernel = floats = None
     for b, cap, n_valid, d, k in INT8_CHECKS:
         q, gq, gs = int8_inputs(gen, b, cap, d, device)
         if n_valid < cap:  # rows a mask must hide: each would win if it were read
@@ -566,7 +586,89 @@ def int8_phase(device):
           flush=True)
     int8_large_case(it, gen, device)
     torch.cuda.empty_cache()
+    main["rising"] = int8_rising_case(it, gen, device)
+    torch.cuda.empty_cache()
     return main
+
+
+def tie_row(d: int, odd) -> list:
+    """Integer entries whose squares sum to 4^9, so the normalised row is
+    exact: a maximum of 254 and entries 2n + 1, whose codes are n + 0.5
+    before rounding."""
+    vals = [254, *odd]
+    rest = 4**9 - sum(v * v for v in vals)
+    while rest:
+        v = min(254, int(rest**0.5))
+        vals.append(v)
+        rest -= v * v
+    return vals + [0] * (d - len(vals))
+
+
+def int8_quantize_case(it, gen, d: int, device) -> None:
+    """``int8_quantize`` against ``quantize_queries`` on the card: codes equal
+    and scales equal bit for bit (NaN where the plain scale is NaN)."""
+    import torch
+
+    x = torch.randn(64, d, generator=gen, device=device)
+    x[1] = 0.0
+    x[2, 3] = float("nan")
+    x[3, 5] = float("inf")
+    x[4, 0] = -float("inf")
+    x[5] = torch.tensor(tie_row(d, (1, 3, 5, 7)), dtype=torch.float32)
+    x[6] = -torch.tensor(tie_row(d, (9, 11, 13)), dtype=torch.float32)
+    x[7] *= 1e-20  # squares below the normal range
+    x[8] *= 1e19  # squares that overflow
+    codes, scales = it.int8_quantize(x)
+    pq, ps = it.quantize_queries(x)
+    check(torch.equal(codes, pq), f"int8_quantize D={d}: codes differ from plain")
+    nan = torch.isnan(ps)
+    check(torch.equal(torch.isnan(scales), nan), f"int8_quantize D={d}: NaN scales differ")
+    check(torch.equal(scales[~nan].view(torch.int32), ps[~nan].view(torch.int32)),
+          f"int8_quantize D={d}: scales differ from plain")
+    check(codes[5, 1:5].tolist() == [0, 2, 2, 4] and codes[6, 1:4].tolist() == [-4, -6, -6],
+          f"int8_quantize D={d}: half-way codes {codes[5, 1:5].tolist()} {codes[6, 1:4].tolist()}")
+    print("int8_quantize", json.dumps({"B": x.shape[0], "D": d, "bit_equal": True,
+                                       "nan_rows": int(nan.sum())}), flush=True)
+
+
+def int8_one_call(it, floats) -> None:
+    """One ``int8_topk`` call on float queries is one count and exactly the
+    three kernels, once each (no PyTorch kernel touches the queries)."""
+    it.launches.reset()
+    for _ in range(3):
+        floats()
+    check(it.launches.count == 3, f"3 int8_topk calls counted {it.launches.count}")
+    want = {name: 1.0 for name in INT8_KERNELS}
+    for attempt in range(5):  # the tracer now and then drops a kernel from a window
+        per_call = {}
+        for name, (count, _) in profile_kernels(floats).items():
+            per_call[name.split("<")[0]] = per_call.get(name.split("<")[0], 0.0) + count
+        if per_call == want:
+            break
+        print(f"profiler: window {attempt + 1} of 5 held {per_call}", file=sys.stderr, flush=True)
+        time.sleep(1.0)
+    check(per_call == want, f"one int8_topk call launched {per_call}, not {list(INT8_KERNELS)} once each")
+    print("int8_topk one call", json.dumps(per_call), flush=True)
+
+
+def int8_rising_case(it, gen, device) -> dict:
+    """The filter's worst case: one positive code row repeated with scales
+    rising by 2^-22 a row, and positive queries, so each row scores above
+    every row before it and enters every list. Bit for bit, timed."""
+    import torch
+
+    b, n, d, k = INT8_RISING_CASE
+    gq = torch.randint(1, 128, (1, d), generator=gen, device=device, dtype=torch.int8).expand(n, d)
+    gq = gq.contiguous()
+    gs = 0.5 + torch.arange(n, device=device, dtype=torch.float32) * 2.0**-22
+    q = torch.rand(b, d, generator=gen, device=device) + 0.1
+    qq, qs, s, i = check_int8(it, q, gq, gs, k, None, f"rising B={b} N={n}")
+    check(bool((i[:, 0] == n - 1).all()), "rising scores: the last row must come first")
+    kernel = lambda: it.int8_topk_codes(qq, qs, gq, gs, k)  # noqa: E731
+    line = {"B": b, "N": n, "D": d, "k": k, "rising": True, "bit_equal": True,
+            "ms": cuda_ms(kernel, 5), "device_us": device_us(kernel, INT8_CODES_KERNELS)}
+    print("int8_topk", json.dumps(line), flush=True)
+    return line
 
 
 def int8_large_case(it, gen, device) -> None:
@@ -856,10 +958,11 @@ def smooth_frames(rng, n: int, side: int):
     return np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2).astype(np.uint8)
 
 
-def serving_phase(card: str, max_faces: int, match_kernel: str = "stream") -> dict:
+def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
     """16 requests through ``MicroBatcher(max_faces=...)`` on the card, each
     detected face's own embedding planted in a 100k gallery; the same frames
-    through the port on the CPU must agree. Returns the kernel launches."""
+    through the port on the CPU must agree. Returns the kernel launches, the
+    fused call's profile and that call (the serving batch's fused call)."""
     import numpy as np
 
     from facerecognition_tpu_torch.apps.serving import MicroBatcher
@@ -987,8 +1090,9 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream") -> di
         + (f"max |score - CPU| {worst_score}, " if match_kernel == "int8" else "")
         + f"{time.perf_counter() - t0:.3f} s", flush=True,
     )
-    fused_profile(engine, np.tile(frames, (PROFILE_BATCH // N_FRAMES, 1, 1, 1)), max_faces)
-    return launches
+    batch = np.tile(frames, (PROFILE_BATCH // N_FRAMES, 1, 1, 1))
+    profile = fused_profile(engine, batch, max_faces)
+    return launches, profile, lambda: engine.fused_recognize_frames(batch, max_faces=max_faces)
 
 
 def staged_phase(card: str) -> dict:
@@ -1167,7 +1271,8 @@ def fused_profile(engine, frames, max_faces: int) -> dict:
         "copies_per_call": copies, "kernels": len(times), "top_us": top,
         "ours_us": {k: v for k, v in times.items()
                     if k.split("<")[0] in ("warp_sample", "detect_post", "split_queries",
-                                           "topk_partial", "topk_merge", "int8_partial")},
+                                           "topk_partial", "topk_merge", "int8_quantize",
+                                           "int8_partial")},
     }
     print("fused_profile", json.dumps(line), flush=True)
     return line
@@ -1219,13 +1324,19 @@ def main() -> int:
         detect = detect_phase(device)
 
     with phase("serving"):
-        one_face = serving_phase(smi, 1)
+        one_face, stream_profile, stream_call = serving_phase(smi, 1)
 
     with phase("crowd"):
-        crowd = serving_phase(smi, CROWD_FACES)
+        crowd, _, _ = serving_phase(smi, CROWD_FACES)
 
     with phase("serving int8"):
-        int8_serving = serving_phase(smi, 1, "int8")
+        int8_serving, int8_profile, int8_call = serving_phase(smi, 1, "int8")
+
+    with phase("fused int8 vs stream"):
+        from facerecognition_tpu_torch.tools.checkout_compare import alternate_ms
+
+        walls = alternate_ms({"int8": int8_call, "stream": stream_call})
+        stream_call = int8_call = None
 
     with phase("staged"):
         staged = staged_phase(smi)
@@ -1302,12 +1413,18 @@ def main() -> int:
             "launches": int8_serving["int8_topk"],
             "max_abs_err": 0.0,
             "ms": int8_main["ms"],
+            "float_queries_ms": int8_main["float_queries_ms"],
             "plain_ms": int8_main["plain_ms"],
             "bound_ms": int8_main["bound_ms"],
             "bound_by": int8_main["bound_by"],
             "library_ms": int8_main["library_ms"],
         },
     ]
+    print("fused int8 vs stream", json.dumps({
+        kind: {**{key: profile[key] for key in ("wall_ms", "device_ms", "host_gap_ms",
+                                                "launches_per_call", "copies_per_call")},
+               "alternating_wall_ms": walls[kind]["ms"], "alternating_rounds_ms": walls[kind]["rounds_ms"]}
+        for kind, profile in (("int8", int8_profile), ("stream", stream_profile))}), flush=True)
     print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
     print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}",
           flush=True)

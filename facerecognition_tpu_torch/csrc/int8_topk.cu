@@ -1,54 +1,83 @@
 // Exact top-k over an int8-quantized gallery, for sm_90a.
 //
 // Replaces `cosine_topk_int8` (facerecognition_tpu/ops/matcher.py), an XLA
-// s8 x s8 -> s32 `dot_general`, a rank-1 dequantisation and `lax.top_k`, as
-// one streaming pass that never writes the (B, N) score matrix:
+// query normalisation and quantization, an s8 x s8 -> s32 `dot_general`, a
+// rank-1 dequantisation and `lax.top_k`, as three launches on the caller's
+// stream that never write the (B, N) score matrix:
 //
 //   scores[b, n] = ((float)acc[b, n] * (q_scale[b] * r)) * (g_scale[n] * r)
 //
 // with acc the exact int32 product of the query and gallery codes and
 // r = float32(1 / 127), each product rounded to nearest as written (XLA
 // rewrites `/ 127.0` into a product with that reciprocal; the plain version
-// `ops/matcher.int8_scores` computes this order). The query codes and
-// scales come from the wrapper (ops/int8_topk.py), which quantizes them on
-// the device with the plain version's functions, so both paths see the same
-// codes.
+// `ops/matcher.int8_scores` computes this order).
 //
-//   pass 1 (int8_partial): grid (n_split, groups), 384 threads, one block per
-//     SM. Warpgroup 0 is the producer: one thread keeps a ring of stages in
-//     flight by TMA, each a (128 gallery rows x 128 dims) int8 tile and the
+//   int8_quantize: one warp per query row computes the plain version's
+//     `quantize_embeddings_int8(l2_normalize_windowed(x))` in its order of
+//     roundings (squares, each 32-column window summed left to right, the
+//     window sums left to right, a float64 root rounded once, true
+//     divisions, a max that keeps NaN, half-to-even codes) and writes the
+//     codes, zero-padded to 16-byte rows, and the scales to a workspace
+//     that pass 1's query tensor map reads. Callers holding codes skip it.
+//   pass 1 (int8_partial): grid (n_split, groups), 256 threads, one block per
+//     SM: two consumer warpgroups, each feeding its own ring of stages by
+//     TMA (its thread 0 refills a stage once its four warps have released
+//     it), each stage a (128 gallery rows x 128 dims) int8 tile and the
 //     group's (W x 128) query-code tile, 128-byte swizzled, with mbarrier
-//     completion. (Keeping the group's whole query block resident instead
-//     measured no faster; see PERF.md.) Rows >= n_valid lie outside the
-//     gallery's tensor map and
-//     arrive as zeros; they never enter a list. Warpgroups 1 and 2 are the
-//     consumers: each takes 64 rows of the tile as the wgmma A operand
-//     (gallery rows on the M side, both operands K-major as 8-bit wgmma
-//     requires) and issues four m64nWk32 s32.s8.s8 wgmmas per stage, A and B
-//     by descriptor, keeping one stage's group in flight while it waits for
-//     the next. The int32 accumulator is exact, so it carries the whole row
-//     across the chunks. After a tile's last chunk each consumer writes its
-//     (64 x W) dequantised scores to shared memory, and each of its first W
-//     threads folds the 64 rows, in row order and eight loads ahead, into a
-//     register top-k list of (order key, row) for its query (order_key.cuh:
-//     NaN above +inf, ties to the lowest row). Each consumer writes its k best per query to
-//     scratch: 2 * n_split candidate lists per query.
+//     completion. Rows >= n_valid lie outside the gallery's tensor map and
+//     arrive as zeros; they never enter a list. The warpgroups are
+//     ping-pong consumers: each takes whole 128-row tiles in turn (even and
+//     odd), so one consumer's epilogue runs while the other's wgmmas are in
+//     flight. A consumer issues two m64nWk32 s32.s8.s8 wgmmas per k-step
+//     (tile rows 0-63 and 64-127, gallery rows on the M side, both operands
+//     K-major as 8-bit wgmma requires), four k-steps per stage, a tile's
+//     stages back to back; it releases them once the tile's products are
+//     done, so their refills load under its epilogue. The int32 accumulator
+//     is exact, so it carries the whole row across the chunks. The epilogue
+//     stays in registers: each thread dequantises its elements in place in
+//     the plain version's order and holds each against its query's float
+//     threshold, the score of the k-th key of the query's list (-inf until
+//     the list holds k), into a mask. The few that reach it go one at a
+//     time through a single copy of the exact test (picked out of the
+//     registers by a tree of selects; a copy per unrolled element nearly
+//     doubled the kernel's code and cost 15% at B = 128, PERF.md): they
+//     take their order keys (order_key.cuh: NaN above +inf), and only an
+//     element whose key passes the k-th key goes to shared memory, compacted
+//     per query as (key, row); each query's owner thread folds those into
+//     its register top-k list (ties to the
+//     lowest row). The k-th key is a lower bound taken before the tile (all
+//     of whose rows are higher than the list's), so an element it drops
+//     cannot be among the k best, and after the first tiles almost every
+//     element is dropped. In a consumer's first tile (its lists empty), in
+//     a round after an overflow, and in every tile after an overflow past a
+//     consumer's first tile (rows that keep entering the lists, as in a
+//     gallery whose scores rise with the row), a bound from the tile itself
+//     also applies: the
+//     k-th best of each warp's eight lane maxima, which k rows of the tile
+//     reach (k <= 8). A query's compaction buffer holds `cap` entries;
+//     when more pass, the epilogue takes further rounds over the elements
+//     not yet placed, each against the list as it then stands (key >= k-th
+//     key, as a tie may now sit on a higher row of the same tile). Each
+//     consumer writes its k best per query to scratch: 2 * n_split
+//     candidate lists per query.
 //   pass 2 (topk_merge): one block per query merges the candidates, as in
 //     stream_topk.cu.
 //
 // The work split (W, groups, n_split, rows_per_split) is stream_topk's plan
-// (ops/stream_topk.plan), made in Python and passed in. The ring's depth is
-// chosen here at launch, as the deepest that fits the shared memory.
+// (ops/stream_topk.plan) with W at most 64, made in Python and passed in.
+// The ring's depth is chosen here at launch, as the deepest that fits the
+// shared memory.
 //
 // What bounds it, on the H100 SXM's published 3.35 TB/s and 1,979 TOP/s
 // (int8, dense): the gallery codes and scales are read once, (D + 4) bytes a
 // row, and the product is 2BND integer operations. At (B, N, D) = (128, 1M,
 // 512) that is max(0.154 ms of bytes, 0.068 ms of operations): bound by the
 // memory path, and at B = 1 and B = 32 more so. A 128-row int8 tile at D =
-// 512 is 64 KB, a quarter of stream_topk's float32 tile, and the products
-// need no split into tf32 pairs, so the tensor cores have slack everywhere;
-// the ring's depth and the epilogue's fold decide how close it comes to the
-// memory rate.
+// 512 is 64 KB, about 2.6 us of one SM's share of HBM. Folding every row
+// through shared memory took 5.8 us a tile at B = 128, 62% of it the fold
+// (PERF.md), hence the filtered register epilogue. At B = 128 the
+// epilogue's issue rate, two warps a sub-partition, still bounds it
+// (PERF.md); at B = 1 the memory path does.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
@@ -60,38 +89,65 @@
 
 namespace {
 
-constexpr int CONSUMERS = 2;                  // consumer warpgroups
-constexpr int WG_ROWS = 64;                   // gallery rows per consumer (wgmma M)
-constexpr int TILE_ROWS = CONSUMERS * WG_ROWS;
+constexpr int CONSUMERS = 2;                  // consumer warpgroups, whole tiles in turn
+constexpr int WG_ROWS = 64;                   // gallery rows of one wgmma (M)
+constexpr int TILE_ROWS = 2 * WG_ROWS;        // rows of a tile: two wgmmas a k-step
 constexpr int K_CHUNK = 128;                  // dims per stage: 128 bytes, the swizzle span
 constexpr int K_STEP = 32;                    // dims per s8 wgmma (32 bytes)
 constexpr int K_STEPS = K_CHUNK / K_STEP;
-constexpr int THREADS = 128 * (1 + CONSUMERS);
+// Two consumer warpgroups and no producer warp (each consumer feeds its own
+// ring from its thread 0): eight warps, two on each SM sub-partition, leave
+// every thread up to 255 registers for its two W / 2 accumulators and its
+// top-k list (a ninth warp caps every thread at 168, setmaxnreg or not).
+constexpr int THREADS = 128 * CONSUMERS;
 constexpr int GALLERY_TILE_BYTES = TILE_ROWS * K_CHUNK;
 constexpr int SMEM_ALIGN = 1024;              // a 128-byte swizzle atom is 8 rows of 128 bytes
 constexpr int MAX_SMEM = 232448;
-constexpr int MIN_STAGES = 2;
+constexpr int MIN_STAGES = 2 * CONSUMERS;     // two stages a ring
 constexpr int MAX_STAGES = 8;
 constexpr int MERGE_THREADS = 256;
-constexpr int FOLD_BATCH = 8;                 // score-tile rows a fold step loads before it inserts
+constexpr int BUF_ENTRIES = 2016;             // (key, row) slots of a consumer's compaction buffer
+constexpr int QUANT_WARPS = 4;                // int8_quantize: query rows per block
+constexpr int WINDOW = 32;                    // columns the norm sums as one window
 constexpr float UNFILLED_SCORE = -1e30f;
 constexpr float INV_127 = 0x1.020408p-7f;     // float32(1 / 127), as XLA folds `/ 127.0`
 
-// Shared memory of pass 1: `stages` x (gallery tile, query tile), then each
-// consumer's (64 x (W + 4)) score tile, the W query scales times r, and the
-// full and empty barriers.
+// Shared memory of pass 1: `stages` x (gallery tile, query tile), a ring of
+// stages / 2 for each consumer (a stage shared by both would see its fills
+// alternate between them, and as TMA fills complete in any order, a
+// consumer could take a parity two fills old for its own), then per
+// consumer its compaction buffer (W x cap (key, row) pairs), its W counts,
+// its W k-th keys, their W float thresholds and W lower bounds of a tile's
+// k-th key, then the W query scales times r and the full and empty
+// barriers.
 struct Layout {
   int width;
   int stages;
+  // entries of a query's compaction buffer: a whole tile where it fits
+  __host__ __device__ int cap() const { return min(TILE_ROWS, BUF_ENTRIES / width); }
   __host__ __device__ int query_bytes() const { return width * K_CHUNK; }
   __host__ __device__ int stage_bytes() const { return GALLERY_TILE_BYTES + query_bytes(); }
-  __host__ __device__ int score_stride() const { return width + 4; }
-  __host__ __device__ int scores_offset() const { return stages * stage_bytes(); }
-  __host__ __device__ int qscale_offset() const {
-    return scores_offset() + CONSUMERS * WG_ROWS * score_stride() * 4;
-  }
+  __host__ __device__ int buf_offset() const { return stages * stage_bytes(); }
+  __host__ __device__ int count_offset() const { return buf_offset() + CONSUMERS * BUF_ENTRIES * 8; }
+  __host__ __device__ int kth_offset() const { return count_offset() + CONSUMERS * width * 4; }
+  __host__ __device__ int thr_offset() const { return kth_offset() + CONSUMERS * width * 4; }
+  __host__ __device__ int lo_offset() const { return thr_offset() + CONSUMERS * width * 4; }
+  __host__ __device__ int qscale_offset() const { return lo_offset() + CONSUMERS * width * 4; }
   __host__ __device__ int barriers_offset() const { return qscale_offset() + width * 4; }
   __host__ __device__ int bytes() const { return barriers_offset() + 2 * stages * 8 + SMEM_ALIGN; }
+};
+
+// A stage of one consumer's ring (stages first, first + 1, ...) and the
+// parity of its current use.
+struct RingCursor {
+  int stage;
+  int phase = 0;
+  __device__ __forceinline__ void advance(int first, int ring) {
+    if (++stage == first + ring) {
+      stage = first;
+      phase ^= 1;
+    }
+  }
 };
 
 __device__ __forceinline__ bool better(int s, int i, int t, int j) {
@@ -162,6 +218,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A named barrier that returns whether any of its threads passed `pred`.
+__device__ __forceinline__ bool named_barrier_any(int id, int threads, bool pred) {
+  int any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.s32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\nselp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(any)
+      : "r"((int)pred), "r"(id), "r"(threads)
+      : "memory");
+  return any != 0;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -267,6 +335,207 @@ struct Wgmma<128> {
   }
 };
 
+// The float NaN-propagating max, as torch.amax takes it (fmaxf drops NaN).
+__device__ __forceinline__ float max_keep_nan(float a, float b) { return (b > a || b != b) ? b : a; }
+
+// quantize_embeddings_int8(l2_normalize_windowed(x)) of (B, D) float32 rows
+// (D a multiple of 4, rows 16-byte aligned) in the plain version's order of
+// roundings; codes (B, pitch) int8 with zero codes past D, scales (B,).
+__global__ void __launch_bounds__(QUANT_WARPS * 32)
+    int8_quantize(const float* __restrict__ x, int B, int D, int pitch, int8_t* __restrict__ codes,
+                  float* __restrict__ scales) {
+  const int row = blockIdx.x * QUANT_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= B) return;
+  const float* xr = x + (size_t)row * D;
+
+  // Lane w sums window w's squares left to right; the window sums are then
+  // added left to right (every lane adds the same values in the same order).
+  const int windows = (D + WINDOW - 1) / WINDOW;
+  float total = 0.f;
+  for (int w0 = 0; w0 < windows; w0 += 32) {
+    const int w = w0 + lane;
+    float part = 0.f;
+    if (w < windows) {
+      const int end = min(D, (w + 1) * WINDOW);
+      for (int j = w * WINDOW; j < end; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xr + j);
+        part = __fadd_rn(part, __fmul_rn(v.x, v.x));
+        part = __fadd_rn(part, __fmul_rn(v.y, v.y));
+        part = __fadd_rn(part, __fmul_rn(v.z, v.z));
+        part = __fadd_rn(part, __fmul_rn(v.w, v.w));
+      }
+    }
+    const int here = min(32, windows - w0);
+    for (int u = 0; u < here; ++u) total = __fadd_rn(total, __shfl_sync(0xffffffffu, part, u));
+  }
+  const float norm = __double2float_rn(__dsqrt_rn((double)total));
+  const float safe = norm < 1e-12f ? 1e-12f : norm;  // clamp keeps a NaN
+
+  float scale = 0.f;
+  for (int j = 4 * lane; j < D; j += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + j);
+    scale = max_keep_nan(scale, fabsf(__fdiv_rn(v.x, safe)));
+    scale = max_keep_nan(scale, fabsf(__fdiv_rn(v.y, safe)));
+    scale = max_keep_nan(scale, fabsf(__fdiv_rn(v.z, safe)));
+    scale = max_keep_nan(scale, fabsf(__fdiv_rn(v.w, safe)));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    scale = max_keep_nan(scale, __shfl_xor_sync(0xffffffffu, scale, off));
+  const float qsafe = scale < 1e-12f ? 1e-12f : scale;
+
+  // round(x / safe * 127) half to even; a NaN gives code 0, as the
+  // conversion to int8 gives it on the card and the CPU.
+  int8_t* cr = codes + (size_t)row * pitch;
+  for (int j = 4 * lane; j < pitch; j += 128) {
+    uint32_t word = 0;
+    if (j < D) {
+      const float4 v = *reinterpret_cast<const float4*>(xr + j);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float c = __fmul_rn(__fdiv_rn(__fdiv_rn(e[u], safe), qsafe), 127.f);
+        const int code = c != c ? 0 : (int)rintf(c);
+        word |= (uint32_t)(code & 0xFF) << (8 * u);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(cr + j) = word;
+  }
+  if (lane == 0) scales[row] = scale;
+}
+
+// The score of a query's k-th key as a float threshold that every element
+// entering the list reaches: -inf while the list is short (or its k-th key
+// lies below -inf's, a negative NaN), +inf from +inf's key up (only +inf
+// and NaN scores can pass then). A score below it cannot pass, whatever
+// its row; NaN scores are always looked at.
+__device__ __forceinline__ float threshold_of(int kth) {
+  constexpr int KEY_NEG_INF = (int)0x807FFFFF;  // order_key(-inf)
+  constexpr int KEY_POS_INF = 0x7F800000;       // order_key(+inf)
+  if (kth <= KEY_NEG_INF) return key_score(KEY_NEG_INF);
+  if (kth >= KEY_POS_INF) return key_score(KEY_POS_INF);
+  return key_score(kth);
+}
+
+// Dequantises one wgmma's accumulator in place, to its scores' bits, in the
+// plain version's order (element e = 4i + j: row 2 * half + j / 2 of the
+// thread's four, column 8i + cb + j % 2).
+template <int W>
+__device__ __forceinline__ void dequantise(int (&acc)[W / 2], int half, const float* qs_r, int cb,
+                                           const float (&gs_r)[4]) {
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    const float2 q = *reinterpret_cast<const float2*>(qs_r + 8 * i + cb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[4 * i + j] = __float_as_int(__fmul_rn(
+          __fmul_rn(__int2float_rn(acc[4 * i + j]), j % 2 ? q.y : q.x), gs_r[2 * half + j / 2]));
+  }
+}
+
+// The elements of one wgmma's scores that reach their query's float
+// threshold, as a mask (bit e for element e).
+template <int W>
+__device__ __forceinline__ uint32_t near_mask(const int (&sc)[W / 2], const float* thr, int cb) {
+  uint32_t near = 0;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    const float2 t = *reinterpret_cast<const float2*>(thr + 8 * i + cb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      near |= (uint32_t)!(__int_as_float(sc[4 * i + j]) < (j % 2 ? t.y : t.x)) << (4 * i + j);
+  }
+  return near;
+}
+
+// v[e] for an e known only at run time, by a tree of selects on e's bits
+// (a register array indexed at run time would move to local memory).
+template <int N>
+__device__ __forceinline__ int pick(const int (&v)[N], int e) {
+  int s[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = v[i];
+#pragma unroll
+  for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) s[i] = (e & w) ? s[i + w] : s[i];
+  }
+  return s[0];
+}
+
+// A lower bound of each query's k-th best key in the tile (k <= 8), for a
+// round whose list is short (a consumer's first tile) or overflowed: each
+// lane takes the best of its four rows of each of its W / 4 columns, then,
+// one column at a time through a single copy of the sort, the eight lanes
+// sharing the column sort those bests in shuffles, and the warp's k-th is a
+// key that k rows of the tile reach, so every row below it has k rows above
+// it. The largest of the four warps' bounds goes to lo.
+template <int W>
+__device__ __forceinline__ void tile_bound(const int (&sc0)[W / 2], const int (&sc1)[W / 2], int cb,
+                                           int lane, int k, const int (&row)[4], int* lo) {
+  int best[W / 4];  // column 8 * (m / 2) + cb + m % 2
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      int v = INT_MIN;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int s = h < 2 ? sc0[4 * i + jj + 2 * h] : sc1[4 * i + jj + 2 * (h - 2)];
+        v = row[h] >= 0 ? max(v, order_key(__int_as_float(s))) : v;
+      }
+      best[2 * i + jj] = v;
+    }
+  }
+  const int p = lane >> 2;  // this lane's place among the eight sharing its columns
+#pragma unroll 1
+  for (int m = 0; m < W / 4; ++m) {
+    int v = pick<W / 4>(best, m);
+#pragma unroll
+    for (int size = 2; size <= 8; size <<= 1) {  // bitonic sort, best first
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const int o = __shfl_xor_sync(0xffffffffu, v, stride << 2);
+        v = ((p & stride) == 0) == ((p & size) == 0) ? max(v, o) : min(v, o);
+      }
+    }
+    const int kth_best = __shfl_sync(0xffffffffu, v, ((k - 1) << 2) | (lane & 3));
+    if (lane < 4) atomicMax(&lo[8 * (m >> 1) + cb + (m & 1)], kth_best);
+  }
+}
+
+// The exact test of one wgmma's elements in `near` (those that reached
+// their query's float threshold), one element at a time through a single
+// copy of this code: an element whose order key passes the query's k-th key
+// (strictly in round 0, where the k-th key comes from rows before the tile;
+// or equal in a later round, against lists that now hold rows of this tile)
+// and the round's bound from the tile itself (in a kernel built with the
+// bounded round, k <= 8), on a live row and query, and that no earlier round
+// placed, takes a slot of its query's buffer while there is one.
+template <int W, bool BOUNDED>
+__device__ __forceinline__ void offer(const int (&sc)[W / 2], int half, uint32_t near,
+                                      const int* kth, const int* lo, int* count, int2* buf,
+                                      int cap, int ncols, int cb, const int (&row)[4], bool later,
+                                      uint32_t& placed) {
+  near &= ~placed;
+  while (near) {
+    const int e = __ffs(near) - 1;
+    near &= near - 1;
+    const int c = 8 * (e >> 2) + cb + (e & 1);
+    const int r = (e & 2) ? row[2 * half + 1] : row[2 * half];
+    const int key = order_key(__int_as_float(pick<W / 2>(sc, e)));
+    const int fk = kth[c];
+    if (!(key > fk || (later && key == fk)) || (BOUNDED && key < lo[c]) || r < 0 || c >= ncols)
+      continue;
+    const int slot = atomicAdd(&count[c], 1);
+    if (slot < cap) {
+      buf[c * cap + slot] = make_int2(key, r);
+      placed |= 1u << e;
+    }
+  }
+}
+
 template <int KMAX, int W>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_partial(const __grid_constant__ CUtensorMap gallery_map,
@@ -274,6 +543,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const float* __restrict__ q_scale, const float* __restrict__ g_scale, int B,
                  int N, int D, int k, int rows_per_split, int stages, int* __restrict__ cand_s,
                  int* __restrict__ cand_i) {
+  constexpr bool BOUNDED = KMAX <= 8;  // the bounded round: tile_bound ranks eight lane maxima
+  static_assert(W <= 64, "a wgmma's elements of a thread are one 32-bit mask");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((SMEM_ALIGN - (smem_u32(smem_raw) & (SMEM_ALIGN - 1))) &
                                     (SMEM_ALIGN - 1));
@@ -286,12 +557,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int group = blockIdx.y;
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min((long long)N, r_begin + rows_per_split);
+  const long long n_tiles = (r_end - r_begin + TILE_ROWS - 1) / TILE_ROWS;
   const int n_chunks = (D + K_CHUNK - 1) / K_CHUNK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
+      mbar_init(&empty[s], 4);  // lane 0 of each warp of the ring's consumer
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -299,42 +571,63 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int q = group * W + threadIdx.x;
     qs_r[threadIdx.x] = q < B ? __fmul_rn(q_scale[q], INV_127) : 0.f;
   }
+  for (int i = threadIdx.x; i < CONSUMERS * W; i += THREADS) {
+    reinterpret_cast<int*>(smem + lay.count_offset())[i] = 0;
+    reinterpret_cast<int*>(smem + lay.kth_offset())[i] = INT_MIN;
+    // a query past B never passes: its threshold is +inf's
+    reinterpret_cast<float*>(smem + lay.thr_offset())[i] =
+        threshold_of(group * W + i % W < B ? INT_MIN : INT_MAX);
+    reinterpret_cast<int*>(smem + lay.lo_offset())[i] = INT_MIN;
+  }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 0) {
-      int stage = 0, phase = 0;
-      for (long long t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
-        for (int c = 0; c < n_chunks; ++c) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          unsigned char* buf = smem + stage * lay.stage_bytes();
-          mbar_expect_tx(&full[stage], lay.stage_bytes());
-          tma_load(buf, &gallery_map, &full[stage], c * K_CHUNK, (int)t0);
-          tma_load(buf + GALLERY_TILE_BYTES, &query_map, &full[stage], c * K_CHUNK, group * W);
-          if (++stage == stages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  // consumer
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-  const int cons = wg - 1;
+  // Consumer `cons` takes tiles cons, cons + 2, ... and feeds its own ring
+  // of `ring` stages: its chunks (a tile's 128-dim slices in order) fill the
+  // ring's stages in turn, and its thread 0 loads the chunk `ring` places
+  // ahead into a stage once all four warps have released the chunk there.
+  const int cons = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int row0 = warp * 16 + lane / 4;  // and row0 + 8, within this consumer's 64 rows
-  const int col = lane % 4;                // columns 8i + 2col (+1)
-  float* scores = reinterpret_cast<float*>(smem + lay.scores_offset()) +
-                  cons * WG_ROWS * lay.score_stride();
-  const int query = group * W + tid;
-  const bool owns_query = tid < W && query < B;
+  const int ring = stages / CONSUMERS;
+  long long loads_left = (n_tiles - cons + 1) / CONSUMERS * n_chunks;  // this consumer's chunks
+  long long load_row = r_begin + cons * TILE_ROWS;
+  int load_dim = 0;
+  auto load = [&](int stage) {  // the next chunk in this consumer's order
+    unsigned char* sbuf = smem + stage * lay.stage_bytes();
+    mbar_expect_tx(&full[stage], lay.stage_bytes());
+    tma_load(sbuf, &gallery_map, &full[stage], load_dim, (int)load_row);
+    tma_load(sbuf + GALLERY_TILE_BYTES, &query_map, &full[stage], load_dim, group * W);
+    load_dim += K_CHUNK;
+    if (load_dim >= D) {
+      load_dim = 0;
+      load_row += CONSUMERS * TILE_ROWS;
+    }
+    --loads_left;
+  };
+  RingCursor take{cons * ring}, give{cons * ring};  // the next chunk to consume, to release
+  if (tid == 0)
+    for (int s = 0; s < ring && loads_left > 0; ++s) load(cons * ring + s);
+  auto release = [&]() {  // the oldest chunk not yet released: its wgmmas are done
+    const int stage = give.stage;
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (tid == 0 && loads_left > 0) {
+      mbar_wait(&empty[stage], give.phase);
+      load(stage);
+    }
+    give.advance(cons * ring, ring);
+  };
+
+  const int rb = warp * 16 + lane / 4;  // rows rb, rb + 8, rb + 64, rb + 72 of a tile
+  const int cb = 2 * (lane % 4);        // columns 8i + cb and 8i + cb + 1
+  const int cap = lay.cap();
+  int2* buf = reinterpret_cast<int2*>(smem + lay.buf_offset()) + cons * BUF_ENTRIES;
+  int* count = reinterpret_cast<int*>(smem + lay.count_offset()) + cons * W;
+  int* kth = reinterpret_cast<int*>(smem + lay.kth_offset()) + cons * W;
+  float* thr = reinterpret_cast<float*>(smem + lay.thr_offset()) + cons * W;
+  int* lo = reinterpret_cast<int*>(smem + lay.lo_offset()) + cons * W;
+  const int ncols = min(W, B - group * W);  // live queries of the group
+  const bool owner = tid < ncols;           // folds query column tid
 
   int ts[KMAX];
   int ti[KMAX];
@@ -344,83 +637,109 @@ __global__ void __launch_bounds__(THREADS, 1)
     ti[m] = INT_MAX;
   }
 
-  int stage = 0, phase = 0;
-  for (long long t0 = r_begin; t0 < r_end; t0 += TILE_ROWS) {
-    int acc[W / 2];
+  // A tile's gallery scales (times r) and rows, -1 past the split; each own
+  // tile's are loaded during the epilogue of the one before.
+  float gs_r[4];
+  int row[4];
+  auto scales_of = [&](long long t0) {
 #pragma unroll
-    for (int j = 0; j < W / 2; ++j) acc[j] = 0;
+    for (int h = 0; h < 4; ++h) {
+      const long long r = t0 + rb + 8 * (h % 2) + WG_ROWS * (h / 2);
+      row[h] = r < r_end ? (int)r : -1;
+      gs_r[h] = r < r_end ? __fmul_rn(g_scale[r], INV_127) : 0.f;
+    }
+  };
+  scales_of(r_begin + cons * TILE_ROWS);
 
-    // One stage's wgmmas stay in flight while the next stage is awaited;
-    // a stage is released once the group after it has been issued and its
-    // own group is done.
-    int prev = -1;
+  bool overflowed = false;  // a buffer of this consumer's overflowed after its first tile
+  for (long long j = cons; j < n_tiles; j += CONSUMERS) {
+    const long long t0 = r_begin + j * TILE_ROWS;
+    int acc0[W / 2];
+    int acc1[W / 2];
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) acc0[e] = acc1[e] = 0;
+
+    // A tile's chunks are issued back to back and released once its
+    // products are done (their refills then load under the epilogue); a
+    // tile longer than the ring frees its oldest chunk before each new one.
     for (int c = 0; c < n_chunks; ++c) {
-      mbar_wait(&full[stage], phase);
-      const unsigned char* buf = smem + stage * lay.stage_bytes();
-      const uint64_t a_desc = kmajor_sw128_desc(smem_u32(buf + cons * WG_ROWS * K_CHUNK));
-      const uint64_t b_desc = kmajor_sw128_desc(smem_u32(buf + GALLERY_TILE_BYTES));
+      if (c >= ring) {
+        wgmma_wait_one();
+        release();
+      }
+      const int stage = take.stage;
+      mbar_wait(&full[stage], take.phase);
+      take.advance(cons * ring, ring);
+      const unsigned char* sbuf = smem + stage * lay.stage_bytes();
+      const uint64_t a_desc = kmajor_sw128_desc(smem_u32(sbuf));
+      const uint64_t a_desc1 = kmajor_sw128_desc(smem_u32(sbuf + WG_ROWS * K_CHUNK));
+      const uint64_t b_desc = kmajor_sw128_desc(smem_u32(sbuf + GALLERY_TILE_BYTES));
       wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < K_STEPS; ++s)  // 32 bytes per k-step along the swizzled rows
-        Wgmma<W>::mma(acc, a_desc + 2 * s, b_desc + 2 * s, 1);
+      for (int s = 0; s < K_STEPS; ++s) {  // 32 bytes per k-step along the swizzled rows
+        Wgmma<W>::mma(acc0, a_desc + 2 * s, b_desc + 2 * s, 1);
+        Wgmma<W>::mma(acc1, a_desc1 + 2 * s, b_desc + 2 * s, 1);
+      }
       wgmma_commit();
-      if (prev >= 0) {
-        wgmma_wait_one();
-        if (lane == 0) mbar_arrive(&empty[prev]);
-      }
-      prev = stage;
-      if (++stage == stages) {
-        stage = 0;
-        phase ^= 1;
-      }
     }
     wgmma_wait_all();
 #pragma unroll
-    for (int j = 0; j < W / 2; ++j) reg_fence(acc[j]);
-    if (lane == 0) mbar_arrive(&empty[prev]);
+    for (int e = 0; e < W / 2; ++e) {
+      reg_fence(acc0[e]);
+      reg_fence(acc1[e]);
+    }
+    for (int c = max(0, n_chunks - ring); c < n_chunks; ++c) release();
 
-    // Dequantise as the plain version rounds: ((float)acc * qs·r) * gs·r.
-    const long long base = t0 + cons * WG_ROWS;
-    const float gs0 = base + row0 < r_end ? __fmul_rn(g_scale[base + row0], INV_127) : 0.f;
-    const float gs1 = base + row0 + 8 < r_end ? __fmul_rn(g_scale[base + row0 + 8], INV_127) : 0.f;
-    named_barrier(1 + cons, 128);  // the previous tile's scores are read
-#pragma unroll
-    for (int i = 0; i < W / 8; ++i) {
-      const int cc = 8 * i + 2 * col;
-      const float q0 = qs_r[cc];
-      const float q1 = qs_r[cc + 1];
-      float* p = scores + row0 * lay.score_stride() + cc;
-      *reinterpret_cast<float2*>(p) =
-          make_float2(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i]), q0), gs0),
-                      __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 1]), q1), gs0));
-      *reinterpret_cast<float2*>(p + 8 * lay.score_stride()) =
-          make_float2(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2]), q0), gs1),
-                      __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 3]), q1), gs1));
-    }
-    named_barrier(1 + cons, 128);
-    if (owns_query) {
-      // Rows in order; a full tile loads FOLD_BATCH keys before it inserts
-      // them, so their shared-memory latencies overlap.
-      const float* column = scores + tid;
-      const int stride = lay.score_stride();
-      const int rows = (int)min((long long)WG_ROWS, r_end - base);
-      if (rows == WG_ROWS) {
-#pragma unroll 1
-        for (int r0 = 0; r0 < WG_ROWS; r0 += FOLD_BATCH) {
-          int key[FOLD_BATCH];
-#pragma unroll
-          for (int u = 0; u < FOLD_BATCH; ++u) key[u] = order_key(column[(r0 + u) * stride]);
-#pragma unroll
-          for (int u = 0; u < FOLD_BATCH; ++u) insert<KMAX>(ts, ti, key[u], (int)base + r0 + u);
-        }
-      } else {
-        for (int r = 0; r < rows; ++r)
-          insert<KMAX>(ts, ti, order_key(column[r * stride]), (int)base + r);
+    // The epilogue, while the other consumer's wgmmas run: the scores once,
+    // then rounds of the filter and the fold.
+    dequantise<W>(acc0, 0, qs_r, cb, gs_r);
+    dequantise<W>(acc1, 1, qs_r, cb, gs_r);
+    uint32_t placed0 = 0, placed1 = 0;  // elements already in a buffer
+    for (bool later = false;; later = true) {
+      // a consumer's first tile (its lists empty), a round after an overflow
+      // and every tile after an overflow past the first tile are also held to
+      // the tile's own bound, which joins the float threshold for the round
+      if (BOUNDED && (later || j == cons || overflowed)) {
+        tile_bound<W>(acc0, acc1, cb, lane, k, row, lo);
+        named_barrier(5 + cons, 128);
+        if (owner) thr[tid] = fmaxf(thr[tid], threshold_of(lo[tid]));
+        named_barrier(5 + cons, 128);
       }
+      offer<W, BOUNDED>(acc0, 0, near_mask<W>(acc0, thr, cb), kth, lo, count, buf, cap, ncols, cb,
+                        row, later, placed0);
+      offer<W, BOUNDED>(acc1, 1, near_mask<W>(acc1, thr, cb), kth, lo, count, buf, cap, ncols, cb,
+                        row, later, placed1);
+      named_barrier(1 + cons, 128);  // the buffers are written
+      bool more = false;
+      if (owner) {
+        const int n = count[tid];
+        const int2* mine = buf + tid * cap;
+        const int m = min(n, cap);
+        int2 e = mine[0];  // each entry loaded one insert ahead
+        for (int s = 0; s < m; ++s) {
+          const int2 cur = e;
+          if (s + 1 < m) e = mine[s + 1];
+          insert<KMAX>(ts, ti, cur.x, cur.y);
+        }
+        count[tid] = 0;
+        more = n > cap;
+        int kk = INT_MIN;
+#pragma unroll
+        for (int mm = 0; mm < KMAX; ++mm)
+          if (mm == k - 1 && ti[mm] != INT_MAX) kk = ts[mm];
+        kth[tid] = kk;
+        thr[tid] = threshold_of(kk);
+        if (BOUNDED) lo[tid] = INT_MIN;
+      }
+      // the buffers are read, the counts and k-th keys are new
+      if (!named_barrier_any(3 + cons, 128, more)) break;
+      if (j != cons) overflowed = true;  // a first tile's rare overflow says nothing of the rest
     }
+    if (j + CONSUMERS < n_tiles) scales_of(t0 + CONSUMERS * TILE_ROWS);
   }
 
-  if (owns_query) {
+  if (owner) {
+    const int query = group * W + tid;
     const size_t out = (((size_t)query * gridDim.x + split) * CONSUMERS + cons) * k;
 #pragma unroll
     for (int m = 0; m < KMAX; ++m) {
@@ -541,7 +860,7 @@ cudaError_t launch_partial(const CUtensorMap& gmap, const CUtensorMap& qmap, con
                            const float* gs, int B, int N, int D, int k, int groups, int n_split,
                            int rows_per_split, int* cand_s, int* cand_i, cudaStream_t stream) {
   Layout lay{W, MAX_STAGES};
-  while (lay.stages > MIN_STAGES && lay.bytes() > MAX_SMEM) --lay.stages;
+  while (lay.stages > MIN_STAGES && lay.bytes() > MAX_SMEM) lay.stages -= CONSUMERS;
   const int bytes = lay.bytes();
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(int8_partial<KMAX, W>,
@@ -553,7 +872,7 @@ cudaError_t launch_partial(const CUtensorMap& gmap, const CUtensorMap& qmap, con
 }
 
 // Pass 1 at query width W, then pass 2; the widths each list length takes
-// are stream_topk's plan's.
+// are stream_topk's plan's, at most 64.
 template <int KMAX>
 cudaError_t launch_passes(const CUtensorMap& gmap, const CUtensorMap& qmap, const float* qs,
                           const float* gs, int B, int N, int D, int k, int width, int groups,
@@ -568,7 +887,6 @@ cudaError_t launch_passes(const CUtensorMap& gmap, const CUtensorMap& qmap, cons
     case 16: INT8_TOPK_PASS1(16); break;
     case 32: INT8_TOPK_PASS1(32); break;
     case 64: if constexpr (KMAX <= 16) INT8_TOPK_PASS1(64); break;
-    case 128: if constexpr (KMAX <= 8) INT8_TOPK_PASS1(128); break;
     default: break;
   }
 #undef INT8_TOPK_PASS1
@@ -577,43 +895,84 @@ cudaError_t launch_passes(const CUtensorMap& gmap, const CUtensorMap& qmap, cons
   return err;
 }
 
+cudaError_t launch_quantize(const float* x, int B, int D, int pitch, int8_t* codes,
+                            float* scales, cudaStream_t st) {
+  int8_quantize<<<(B + QUANT_WARPS - 1) / QUANT_WARPS, QUANT_WARPS * 32, 0, st>>>(x, B, D, pitch,
+                                                                                 codes, scales);
+  return cudaGetLastError();
+}
+
+// Runs `launch` with `device` current and restores the caller's device;
+// returns 0, a CUDA error code, or -1 when `launch` refused its arguments.
+template <typename Launch>
+int on_device(int device, Launch&& launch) {
+  int caller_device = 0;
+  cudaError_t err = cudaGetDevice(&caller_device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch();
+  const cudaError_t restored = cudaSetDevice(caller_device);
+  if (err != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
+  if (restored != cudaSuccess) return (int)restored;
+  return (int)cudaGetLastError();
+}
+
+int padded_width(int D) { return (D + 15) / 16 * 16; }
+
 }  // namespace
 
 extern "C" {
 
-// qq (B, D) int8 query codes with their (B,) float32 scales; gq int8
-// gallery codes, row stride `g_stride` bytes, of which rows [0, n_valid)
-// are read, with their float32 scales. D and both row strides are multiples
-// of 16 bytes and the bases 16-byte aligned. The plan (query width W,
-// groups, n_split, rows_per_split, n_cand) comes from the Python wrapper;
-// cand_s/cand_i are (B, n_cand) int32 scratch (score keys and rows). Returns
-// 0 on success, a CUDA error code, or -1 for a plan or shape it cannot run
-// and -2 when the driver's tensor-map encoder is missing or refuses a map.
-int int8_topk_launch(const int8_t* qq, const float* qs, const int8_t* gq, long long g_stride,
-                     const float* gs, int B, int n_valid, int D, int k, int width, int groups,
-                     int n_split, int rows_per_split, int n_cand, int* cand_s, int* cand_i,
-                     float* out_s, int* out_i, int device, void* stream) {
-  if (B < 1 || n_valid < 1 || D < 16 || D % 16 || g_stride < D || g_stride % 16 || k < 1 ||
-      k > 32 || k > n_valid || width % 8 || groups < 1 || groups * width < B || n_split < 1 ||
+// int8_quantize alone: x (B, D) float32 rows (D a multiple of 4, the base
+// 16-byte aligned) to codes (B, D rounded up to a multiple of 16) int8 and
+// scales (B,) float32. Returns 0, a CUDA error code, or -1 for a shape it
+// cannot take.
+int int8_quantize_launch(const float* x, int B, int D, int8_t* codes, float* scales, int device,
+                         void* stream) {
+  if (B < 1 || D < 4 || D % 4) return -1;
+  return on_device(device, [&] {
+    return launch_quantize(x, B, D, padded_width(D), codes, scales,
+                           static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The top-k of B queries against gallery codes gq (row stride `g_stride`
+// bytes, rows [0, n_valid) read) with their float32 scales gs. Given float
+// `queries` (B, D), int8_quantize first writes their codes to qq (B, dims)
+// and their scales to qs; given none (nullptr), qq (B, dims) and qs are the
+// caller's codes and scales. dims, the codes' row width, is D rounded up to
+// a multiple of 16 (the codes past D are zeros); both row strides are
+// multiples of 16 bytes and the bases 16-byte aligned. The plan (query width
+// W, groups, n_split, rows_per_split, n_cand) comes from the Python wrapper;
+// cand_s/cand_i are (B, n_cand) int32 scratch (score keys and rows). All
+// launches go to `stream`. Returns 0 on success, a CUDA error code, or -1
+// for a plan or shape it cannot run and -2 when the driver's tensor-map
+// encoder is missing or refuses a map.
+int int8_topk_launch(const float* queries, int8_t* qq, float* qs, const int8_t* gq,
+                     long long g_stride, const float* gs, int B, int n_valid, int D, int dims,
+                     int k, int width, int groups, int n_split, int rows_per_split, int n_cand,
+                     int* cand_s, int* cand_i, float* out_s, int* out_i, int device,
+                     void* stream) {
+  if (B < 1 || n_valid < 1 || dims < 16 || dims % 16 || g_stride < dims || g_stride % 16 ||
+      (queries != nullptr && (D < 4 || D % 4 || padded_width(D) != dims)) || k < 1 || k > 32 ||
+      k > n_valid || width % 8 || groups < 1 || groups * width < B || n_split < 1 ||
       rows_per_split % TILE_ROWS || (long long)(n_split - 1) * rows_per_split >= n_valid ||
       (long long)n_split * rows_per_split < n_valid || n_cand != n_split * CONSUMERS * k)
     return -1;
   const EncodeTiled fn = encoder();
   CUtensorMap gmap, qmap;
-  if (fn == nullptr || !encode(fn, &gmap, gq, n_valid, D, g_stride, TILE_ROWS) ||
-      !encode(fn, &qmap, qq, B, D, D, width))
+  if (fn == nullptr || !encode(fn, &gmap, gq, n_valid, dims, g_stride, TILE_ROWS) ||
+      !encode(fn, &qmap, qq, B, dims, dims, width))
     return -2;
-  int caller_device = 0;
-  cudaError_t err = cudaGetDevice(&caller_device);
-  if (err == cudaSuccess) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   auto* passes = k <= 8 ? &launch_passes<8> : k <= 16 ? &launch_passes<16> : &launch_passes<32>;
-  err = passes(gmap, qmap, qs, gs, B, n_valid, D, k, width, groups, n_split, rows_per_split,
-               n_cand, cand_s, cand_i, out_s, out_i, static_cast<cudaStream_t>(stream));
-  const cudaError_t restored = cudaSetDevice(caller_device);
-  if (err != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
-  if (restored != cudaSuccess) return (int)restored;
-  return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&] {
+    cudaError_t err = queries != nullptr ? launch_quantize(queries, B, D, dims, qq, qs, st)
+                                         : cudaSuccess;
+    if (err != cudaSuccess) return err;
+    return passes(gmap, qmap, qs, gs, B, n_valid, dims, k, width, groups, n_split,
+                  rows_per_split, n_cand, cand_s, cand_i, out_s, out_i, st);
+  });
 }
 
 }  // extern "C"

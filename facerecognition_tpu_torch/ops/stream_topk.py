@@ -64,13 +64,14 @@ def _list_len(k: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(b: int, n: int, k: int, sm_count: int) -> Plan:
+def plan(b: int, n: int, k: int, sm_count: int, max_width: int = QUERY_WIDTHS[-1]) -> Plan:
     """Cut B queries x N gallery rows for ``sm_count`` SMs: about one block
     per SM, each over whole 128-row tiles. The widest query group shrinks as
-    k grows, so the accumulators and the top-k lists fit the registers."""
-    if b < 1 or n < 1 or not 1 <= k <= MAX_K or sm_count < 1:
+    k grows, so the accumulators and the top-k lists fit the registers, and
+    is at most ``max_width``."""
+    if b < 1 or n < 1 or not 1 <= k <= MAX_K or sm_count < 1 or max_width not in QUERY_WIDTHS:
         raise ValueError(f"stream_topk cannot plan B={b}, N={n}, k={k}, SMs={sm_count}")
-    widest = {8: 128, 16: 64, 32: 32}[_list_len(k)]
+    widest = min(max_width, {8: 128, 16: 64, 32: 32}[_list_len(k)])
     groups = -(-b // widest)
     per_group = -(-b // groups)
     width = next(w for w in QUERY_WIDTHS if w >= per_group)

@@ -150,17 +150,18 @@ def test_kernel_dequant_order_equals_plain(rng, b, n, d, k, n_valid):
 @pytest.mark.parametrize("b, n, k", [(128, 1_000_000, 5), (1, 1_000_000, 5), (32, 100_000, 5),
                                      (7, 3, 3), (300, 12_345, 32), (40, 5_000, 16)])
 def test_shared_plan_covers_the_live_rows_once(b, n, k):
-    """int8_topk takes stream_topk's plan over the n_valid live rows: every
-    row in exactly one split, the splits whole 128-row tiles, the query
-    groups covering B, and a width the kernel instantiates for that k."""
-    p = st.plan(b, n, k, 132)
+    """int8_topk takes stream_topk's plan, its query groups at most
+    ``MAX_WIDTH`` wide, over the n_valid live rows: every row in exactly one
+    split, the splits whole 128-row tiles, the query groups covering B, and
+    a width the kernel instantiates for that k."""
+    p = st.plan(b, n, k, 132, it.MAX_WIDTH)
     covered = np.zeros(n, np.int32)
     for s in range(p.n_split):
         covered[s * p.rows_per_split:min(n, (s + 1) * p.rows_per_split)] += 1
     assert (covered == 1).all()
     assert p.rows_per_split % 128 == 0 and (p.n_split - 1) * p.rows_per_split < n
     assert p.groups * p.width >= b
-    assert p.width in {8: (8, 16, 32, 64, 128), 16: (8, 16, 32, 64), 32: (8, 16, 32)}[
+    assert p.width in {8: (8, 16, 32, 64), 16: (8, 16, 32, 64), 32: (8, 16, 32)}[
         8 if k <= 8 else 16 if k <= 16 else 32
     ]
     assert p.n_cand == p.n_split * 2 * k
