@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Phases, each printing its wall seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc builds every kernel of the path from ``csrc/``, one process
+2. build: nvcc builds the six kernels from ``csrc/``, one process
    per source, all started together (seconds and the ptxas register /
    shared-memory / spill lines).
 3. kernels: ``stream_topk`` against its plain PyTorch version on the card,
@@ -68,8 +68,25 @@ Phases, each printing its wall seconds:
     CPU port.
 11. blaze: ``detector_v2_128`` through ``detect_all`` and one fused call
     (M = 4, int8), against the CPU port.
+12. lbph: ``lbph_hist`` at B = 128, 100², (r 1, 8x8) and (r 2, 5x4), and at
+    16 neighbours, bit for bit against its plain version; ``LBPHModel``
+    trained on 75,000 faces on the card and 128 probes through
+    ``predict_batch`` (planted faces come back at distance 0); ``chi2_nn``
+    at (128, 75,000, 16,384) against its plain version (nearest rows,
+    distances within 1e-5 relative), bit for bit against the kernel's
+    summation order on a block of rows, duplicates to the lower index,
+    timed against the chunked PyTorch expression + ``torch.min``, with its
+    operations bound counted on the run's histograms; the model's API on
+    small data against the CPU port, with launches per call.
+13. facenet: the shipped ``facenet_synthid9k_512.msgpack`` (read by the
+    port's msgpack reader; InceptionResnetV1 at 160²) as phases 7 and 8
+    (one face and ``max_faces=4`` through ``MicroBatcher``, 100k gallery,
+    ``stream``, planted top-1s, the CPU agrees; one fused call at B = 128
+    profiled), and the staged API with ``stream`` against the CPU port.
+    The warp phase also checks ``embedder_input`` at 160² (align and the
+    160² crowd window).
 
-Phases 7-11 are the paths: every kernel counter is set to 0 just before
+Phases 7-13 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -128,22 +145,25 @@ FRAME = (256, 256)
 CROWD_FACES = 4
 WARP_B = 128
 DET_SIZE = 128  # the shipped detector's input side
-# (name, frame side, frames, slots per frame, mode): the shapes the paths give
-# warp_sample. "resize" feeds the detector, "align" the one-face path, "window"
-# the crowd path at frames above 160², "repeat" the crowd path at 160² or less.
-# WARP_CASES call the public functions (no normalisation), INPUT_CASES the
-# model inputs the engine builds (detector_input, embedder_input).
+# (name, frame side, frames, slots per frame, mode, output side): the shapes
+# the paths give warp_sample. "resize" feeds the detector, "align" the
+# one-face path, "window" the crowd path at frames above 160², "repeat" the
+# crowd path at 160² or less; ArcFace takes 112², FaceNet 160². WARP_CASES
+# call the public functions (no normalisation), INPUT_CASES the model inputs
+# the engine builds (detector_input, embedder_input).
 WARP_CASES = (
-    ("resize", 256, WARP_B, 1, "resize"),
-    ("align", 256, WARP_B, 1, "align"),
-    ("window", 256, 32, CROWD_FACES, "window"),
-    ("repeat", 160, 32, CROWD_FACES, "align"),
+    ("resize", 256, WARP_B, 1, "resize", 128),
+    ("align", 256, WARP_B, 1, "align", 112),
+    ("window", 256, 32, CROWD_FACES, "window", 112),
+    ("repeat", 160, 32, CROWD_FACES, "align", 112),
 )
 INPUT_CASES = (
-    ("detector_input", 256, WARP_B, 1, "resize"),
-    ("embedder_input", 256, WARP_B, 1, "align"),
-    ("embedder_input_window", 256, 32, CROWD_FACES, "window"),
-    ("embedder_input_repeat", 160, 32, CROWD_FACES, "align"),
+    ("detector_input", 256, WARP_B, 1, "resize", DET_SIZE),
+    ("embedder_input", 256, WARP_B, 1, "align", 112),
+    ("embedder_input_window", 256, 32, CROWD_FACES, "window", 112),
+    ("embedder_input_repeat", 160, 32, CROWD_FACES, "align", 112),
+    ("embedder_input_160", 256, WARP_B, 1, "align", 160),
+    ("embedder_input_window_160", 256, 32, CROWD_FACES, "window", 160),
 )
 # (B, detector side of the anchors, anchors kept (None: all), M). Timed: the
 # crowd path's shape (896 anchors) at M = 4 and 16. Checked only: a frame of
@@ -179,6 +199,19 @@ INT8_TOL = 5e-4  # the card against the CPU port: a flipped query code moves a s
 STAGED_FRAMES = 6
 STAGED_ROWS = 2_000
 BLAZE_WEIGHTS = "assets/detector_v2_128.msgpack"
+# Every kernel source of the port, built together at the start.
+KERNELS = ("stream_topk", "warp_sample", "detect_post", "int8_topk", "lbph_hist", "chi2_nn")
+FACENET_WEIGHTS = "facenet_synthid9k_512.msgpack"
+# LBPH: 100² gray faces, the reference's 9,343-identity scale (~75k training
+# images), 128 probes. Bounds: the FP32 pipes' 67 TFLOP/s (H100 SXM, dense)
+# for the operations a chi-square term needs (add, subtract, square, divide,
+# accumulate) on the terms whose bins are not both empty.
+FP32_OPS_PER_TERM = 5
+LBPH_SIDE = 100
+LBPH_CASES = ((WARP_B, 1, 8, 8, 8), (WARP_B, 2, 8, 5, 4), (8, 1, 16, 2, 2))  # (B, r, P, gx, gy)
+LBPH_IDENTITIES, LBPH_SAMPLES = 7_500, 10  # 75,000 gallery rows
+LBPH_PROBES = 128
+CHI2_CHECK_ROWS = 4_096  # rows the kernel-order emulation covers
 
 
 class CheckFailed(RuntimeError):
@@ -240,13 +273,17 @@ def profile_kernels(fn, calls: int = 5, attempts: int = 5) -> dict:
             time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # Late in a run the tracer loses the first device event of a
+            # window: a marker kernel, left out below, takes that place.
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
                 continue
-            if ev.device_time_total <= 0:
+            if ev.device_time_total <= 0 or "spin_kernel" in ev.key:
                 continue
             name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", ev.key)
             count, us = out.get(name, (0.0, 0.0))
@@ -285,17 +322,26 @@ def device_us(fn, kernels=None, calls: int = 5, attempts: int = 5) -> dict:
     check(False, f"profiler trace holds {sorted(found)}, not {list(kernels)}")
 
 
-def kernel_trace(fn, kernel: str, calls: int = 5) -> tuple[list, dict]:
-    """One profiled window of ``calls`` calls of ``fn``: the device events of
+def kernel_trace(fn, kernel: str, calls: int = 5, attempts: int = 5) -> tuple[list, dict]:
+    """A profiled window of ``calls`` calls of ``fn``: the device events of
     one call, which must be exactly one, ``kernel``'s (no copy, no
     elementwise or solver kernel around it), or it fails; and that kernel's
-    device µs per call."""
-    events = profile_kernels(fn, calls)
-    per_call = []
-    for name, (count, _) in events.items():
-        per_call += [name.split("<")[0]] * round(count)
-    check(per_call == [kernel], f"one call launched {per_call}, not one {kernel}")
-    return per_call, {name: us for name, (_, us) in events.items()}
+    device µs per call. A window whose events of ``kernel`` fall short of
+    one a call (the tracer drops events now and then) is taken again, up to
+    ``attempts`` times; any other event fails at once."""
+    for attempt in range(attempts):
+        events = profile_kernels(fn, calls)
+        per_call = []
+        for name, (count, _) in events.items():
+            per_call += [name.split("<")[0]] * round(count)
+        if per_call == [kernel]:
+            return per_call, {name: us for name, (_, us) in events.items()}
+        check(set(per_call) <= {kernel}, f"one call launched {per_call}, not one {kernel}")
+        seen = {name[:40]: round(count, 2) for name, (count, _) in events.items()}
+        print(f"profiler: window {attempt + 1} of {attempts} held {seen} events a call, "
+              f"not one {kernel}", file=sys.stderr, flush=True)
+        time.sleep(1.0)
+    check(False, f"one call launched {per_call}, not one {kernel}")
 
 
 def clocks_under_load(fn, seconds: float = 2.0) -> dict:
@@ -756,15 +802,15 @@ def warp_inputs(rng, side: int, b: int, m: int, device):
     return frames, torch.as_tensor(lm.astype(np.float32), device=device)
 
 
-def check_slot_parameters(ws, frames, lms, window, det_size) -> None:
+def check_slot_parameters(ws, frames, lms, out, window, det_size) -> None:
     """The kernel's per-slot prologue gives the plain version's coefficients
     and origins bit for bit, against the plain version on the card and on
     the CPU."""
     import torch
 
-    got = ws.slot_parameters(frames, lms, 112, window, det_size)
-    on_card = ws.slot_parameters_plain(frames.shape, lms, 112, window, det_size)
-    on_cpu = ws.slot_parameters_plain(frames.shape, lms.cpu(), 112, window, det_size)
+    got = ws.slot_parameters(frames, lms, out, window, det_size)
+    on_card = ws.slot_parameters_plain(frames.shape, lms, out, window, det_size)
+    on_cpu = ws.slot_parameters_plain(frames.shape, lms.cpu(), out, window, det_size)
     check(torch.equal(got, on_card), "warp_sample prologue differs from the plain version on the card")
     check(torch.equal(got.cpu(), on_cpu), "warp_sample prologue differs from the plain version on the CPU")
 
@@ -780,7 +826,7 @@ def warp_phase(device):
     rng = np.random.default_rng(SEED)
     lines = {}
     for case in WARP_CASES + INPUT_CASES:
-        name, side, b, m, mode = case
+        name, side, b, m, mode, out = case
         frames, lms = warp_inputs(rng, side, b, m, device)
         model_input = case in INPUT_CASES
         window = 160 if mode == "window" else None
@@ -790,34 +836,34 @@ def warp_phase(device):
             lms[0, 0, 0] = torch.tensor([-3.0, DET_SIZE + 5.0], device=device)
         det_size = DET_SIZE if model_input else None
         if mode != "resize":
-            check_slot_parameters(ws, frames, lms, window, det_size)
+            check_slot_parameters(ws, frames, lms, out, window, det_size)
         lms_frame = ws.scale_landmarks(lms, side, side, DET_SIZE) if model_input else lms
         for fast in (True, False):
             if mode == "resize" and model_input:
-                kernel = lambda: ws.detector_input(frames, DET_SIZE, fast)  # noqa: E731
-                plain = lambda: ws.detector_input_plain(frames, DET_SIZE, fast)  # noqa: E731
+                kernel = lambda: ws.detector_input(frames, out, fast)  # noqa: E731
+                plain = lambda: ws.detector_input_plain(frames, out, fast)  # noqa: E731
             elif model_input:
-                kernel = lambda: ws.embedder_input(frames, lms, DET_SIZE, 112, window, fast)  # noqa: E731
+                kernel = lambda: ws.embedder_input(frames, lms, DET_SIZE, out, window, fast)  # noqa: E731
                 plain = lambda: ws.embedder_input_plain(  # noqa: E731
-                    frames, lms, DET_SIZE, 112, window, fast
+                    frames, lms, DET_SIZE, out, window, fast
                 )
             elif mode == "resize":
-                kernel = lambda: ws.bilinear_resize(frames, 128, 128, fast)  # noqa: E731
-                plain = lambda: wm.bilinear_resize_mxu_batch(frames, 128, 128, fast)  # noqa: E731
+                kernel = lambda: ws.bilinear_resize(frames, out, out, fast)  # noqa: E731
+                plain = lambda: wm.bilinear_resize_mxu_batch(frames, out, out, fast)  # noqa: E731
             elif mode == "window":
-                kernel = lambda: ws.align_crop_window(frames, lms, 112, 160, fast)  # noqa: E731
-                plain = lambda: wm.align_crop_mxu_window(frames, lms, 112, 160, fast)  # noqa: E731
+                kernel = lambda: ws.align_crop_window(frames, lms, out, 160, fast)  # noqa: E731
+                plain = lambda: wm.align_crop_mxu_window(frames, lms, out, 160, fast)  # noqa: E731
             else:
-                kernel = lambda: ws.align_crop(frames, lms, 112, fast)  # noqa: E731
+                kernel = lambda: ws.align_crop(frames, lms, out, fast)  # noqa: E731
                 plain = lambda: wm.align_crop_mxu_batch(  # noqa: E731
-                    frames.repeat_interleave(m, 0), lms.reshape(-1, 5, 2), 112, fast
+                    frames.repeat_interleave(m, 0), lms.reshape(-1, 5, 2), out, fast
                 )
             with strict_fp32():
                 got = kernel()
                 torch.cuda.synchronize()
                 ref = plain()
                 diff = (got - ref).abs()
-                line = {"case": name, "frames": b, "side": side, "slots": b * max(m, 1),
+                line = {"case": name, "frames": b, "side": side, "out": out, "slots": b * max(m, 1),
                         "fast": fast, "max_abs_err": diff.max().item(),
                         "mean_abs_err": diff.mean().item()}
                 check(line["max_abs_err"] <= (0.0 if fast else 1e-3),
@@ -828,7 +874,7 @@ def warp_phase(device):
                 if mode == "resize" and not fast and not model_input:
                     x = frames.permute(0, 3, 1, 2).float().contiguous()
                     interp = lambda: torch.nn.functional.interpolate(  # noqa: E731
-                        x, size=(128, 128), mode="bilinear", align_corners=False, antialias=False
+                        x, size=(out, out), mode="bilinear", align_corners=False, antialias=False
                     )
                     lib_diff = (interp().permute(0, 2, 3, 1) - got).abs().max().item()
                     check(lib_diff <= 1e-3, f"interpolate differs from the resize by {lib_diff}")
@@ -836,7 +882,6 @@ def warp_phase(device):
                     line["library_ms"] = statistics.median(cuda_ms(interp, 20) for _ in range(3))
                     line["library_device_us"] = sum(device_us(interp, calls=3).values())
                     x = None
-                out = got.shape[1]
                 moved = got.numel() * 4 + touched_pixels(frames, lms_frame, m, mode, out) * 3
                 moved += 0 if mode == "resize" else lms.numel() * 4
                 line["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
@@ -936,10 +981,18 @@ def detect_post_bytes(raw, anchors, iou_threshold: float, max_faces: int, outs) 
 
 
 def _counters():
-    from facerecognition_tpu_torch.ops import detect_post, int8_topk, stream_topk, warp_sample
+    from facerecognition_tpu_torch.ops import (
+        chi2_nn,
+        detect_post,
+        int8_topk,
+        lbph_hist,
+        stream_topk,
+        warp_sample,
+    )
 
     return {"stream_topk": stream_topk.launches, "warp_sample": warp_sample.launches,
-            "detect_post": detect_post.launches, "int8_topk": int8_topk.launches}
+            "detect_post": detect_post.launches, "int8_topk": int8_topk.launches,
+            "lbph_hist": lbph_hist.launches, "chi2_nn": chi2_nn.launches}
 
 
 def reset_counters() -> dict:
@@ -958,7 +1011,23 @@ def smooth_frames(rng, n: int, side: int):
     return np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2).astype(np.uint8)
 
 
-def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
+def load_embedder(model_type: str, device):
+    """The shipped embedder of ``model_type`` (ArcFace ultraslim, 112²; the
+    9,343-identity FaceNet, 160², read by the port's msgpack reader)."""
+    import os
+
+    from facerecognition_tpu_torch.inference import extract_embeddings as ee
+
+    if model_type == "facenet":
+        path = ee.default_facenet_checkpoint()
+        check(path is not None and os.path.basename(path) == FACENET_WEIGHTS,
+              f"FaceNet weights resolved to {path}, not {FACENET_WEIGHTS}")
+        return ee.load_facenet_model(path, device=device)
+    return ee.load_arcface_model(ee.default_arcface_checkpoint(), device=device)
+
+
+def serving_phase(card: str, max_faces: int, match_kernel: str = "stream",
+                  model_type: str = "arcface"):
     """16 requests through ``MicroBatcher(max_faces=...)`` on the card, each
     detected face's own embedding planted in a 100k gallery; the same frames
     through the port on the CPU must agree. Returns the kernel launches, the
@@ -967,10 +1036,6 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
 
     from facerecognition_tpu_torch.apps.serving import MicroBatcher
     from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
-    from facerecognition_tpu_torch.inference.extract_embeddings import (
-        default_arcface_checkpoint,
-        load_arcface_model,
-    )
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
 
     rng = np.random.default_rng(SEED + max_faces)
@@ -980,7 +1045,9 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
 
     def build_engine(device):
         detector = FaceDetector(confidence_threshold=0.0, min_face_size=0, device=device)
-        embedder = load_arcface_model(default_arcface_checkpoint(), device=device)
+        embedder = load_embedder(model_type, device)
+        check(embedder.config.input_size == (160 if model_type == "facenet" else 112),
+              f"{model_type} embedder takes {embedder.config.input_size}²")
         gallery = Gallery(512, device=device)
         gallery.add_many(names, rows)
         return RecognitionEngine(
@@ -1056,7 +1123,8 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
     stats = batcher.stats()
     print(
         "serving", json.dumps({
-            "card": card, "max_faces": max_faces, "match_kernel": match_kernel,
+            "card": card, "model_type": model_type, "max_faces": max_faces,
+            "match_kernel": match_kernel,
             "requests": N_FRAMES, "faces": len(faces),
             "clients": N_CLIENTS, "batches": stats["batches"], "wall_s": serve_s,
             "latency_ms_p50": lat[(len(lat) - 1) // 2] * 1e3,
@@ -1095,20 +1163,244 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream"):
     return launches, profile, lambda: engine.fused_recognize_frames(batch, max_faces=max_faces)
 
 
-def staged_phase(card: str) -> dict:
+def lbph_faces(gen, identities: int, samples: int, device):
+    """(identities·samples, 100, 100) float32 gray faces on the card, sample
+    s of identity i at row i·samples + s: each identity a blocky pattern of
+    its own, each sample it plus integer noise (a new draw for probes)."""
+    import torch
+
+    side = LBPH_SIDE
+    coarse = torch.randint(30, 226, (identities, 1, 13, 13), generator=gen, device=device)
+    base = torch.nn.functional.interpolate(coarse.float(), scale_factor=8, mode="nearest")
+    base = base[:, 0, :side, :side]
+    noise = torch.randint(-12, 13, (identities, samples, side, side), generator=gen, device=device)
+    faces = (base[:, None] + noise).clamp(0, 255).reshape(-1, side, side)
+    return faces.contiguous()
+
+
+def chi2_needed_terms(q, g) -> int:
+    """Terms of the chi-square sums whose bins are not both empty: B·N·F
+    less, per (query, row), the count of bins empty on both sides (an exact
+    float32 product of 0/1 masks, F < 2^24)."""
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+
+    zq = (q == 0).float()
+    both = 0.0
+    with strict_fp32():
+        for n0 in range(0, g.shape[0], 16_384):
+            both += float((zq @ (g[n0 : n0 + 16_384] == 0).float().T).double().sum())
+    return int(q.shape[0] * g.shape[0] * q.shape[1] - both)
+
+
+def lbph_phase(card: str, device):
+    """The LBPH path on the card. ``lbph_hist`` at B = 128, 100², (r 1, 8x8)
+    and (r 2, 5x4), and at 16 neighbours (the histogram in the output row),
+    bit for bit against its plain version on the card and on the CPU.
+    ``LBPHModel`` trained on 75,000 faces on the card (the features from
+    ``lbph_hist``), 128 probes through ``predict_batch`` (``chi2_nn``): each
+    probe that is a training face comes back with its label at distance 0.
+    ``chi2_nn`` at (128, 75,000, 16,384): argmin equal to the plain
+    version's wherever the plain version's two nearest rows differ by more
+    than 1e-5 relative, distances within 1e-5 relative, bit for bit against
+    the kernel's order (``chi2_distances_kernel_order``) on a block of rows,
+    duplicated rows resolved to the lower index; kernel, plain and library
+    (the chunked PyTorch expression + ``torch.min``) times. Then the
+    model's train / predict / predict_topk / predict_batch and
+    ``recognize_face`` on the striped-class data of tests/test_lbph.py
+    against the CPU port, with the launches per call."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.lbph import LBPHModel
+    from facerecognition_tpu_torch.models.lbph_tools import recognize_face
+    from facerecognition_tpu_torch.ops import chi2_nn as cn
+    from facerecognition_tpu_torch.ops import lbph_hist as lh
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    hist_lines = []
+    for b, r, p, gx, gy in LBPH_CASES:
+        imgs = lbph_faces(gen, b, 1, device)
+        imgs[0, 20:60, 30:80] = 131.0  # a flat region: the fused taps decide its bits
+        kernel = lambda: lh.lbph_hist(imgs, r, p, gx, gy)  # noqa: E731
+        plain = lambda: lh.lbph_features_plain(imgs, r, p, gx, gy)  # noqa: E731
+        got = kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain()), f"lbph_hist r={r} P={p} {gx}x{gy}: differs from plain")
+        check(torch.equal(got.cpu(), lh.lbph_features_plain(imgs.cpu(), r, p, gx, gy)),
+              f"lbph_hist r={r} P={p} {gx}x{gy}: differs from the plain version on the CPU")
+        line = {"B": b, "radius": r, "neighbors": p, "grid": [gx, gy], "bit_equal": True,
+                "max_abs_err": 0.0}
+        line["trace"], line["device_us"] = kernel_trace(kernel, "lbph_hist")
+        line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
+        line["plain_ms"] = cuda_ms(plain, 3, 1)
+        line["library_ms"] = None
+        line["bound_ms"] = (imgs.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        line["bound_by"] = "bytes"
+        print("lbph_hist", json.dumps(line), flush=True)
+        hist_lines.append(line)
+
+    # the full-size path: train on 75,000 faces, predict 128 probes
+    counters = reset_counters()
+    faces = lbph_faces(gen, LBPH_IDENTITIES, LBPH_SAMPLES, device)
+    labels = np.repeat(np.arange(LBPH_IDENTITIES), LBPH_SAMPLES)
+    model = LBPHModel(device=None)  # the entry points' default device: the card
+    check(model.device == device, f"LBPHModel on {model.device}")
+    t0 = time.perf_counter()
+    model.train(faces, labels)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    gallery = model._gallery
+    rows = faces.shape[0]
+    probe_rows = torch.randperm(rows, generator=gen, device=device)[: LBPH_PROBES // 2]
+    fresh = lbph_faces(gen, LBPH_PROBES // 2, 1, device)  # new faces: no planted answer
+    probes = torch.cat([faces[probe_rows], fresh])
+    t0 = time.perf_counter()
+    pred, conf = model.predict_batch(probes)
+    predict_s = time.perf_counter() - t0
+    planted = probe_rows.cpu().numpy()
+    check(bool((pred[: len(planted)] == labels[planted]).all()), "a training face came back mislabelled")
+    check(bool((conf[: len(planted)] == 0.0).all()), "a training face is not at distance 0")
+    model_launches = {name: c.count for name, c in counters.items()}
+    for name in ("lbph_hist", "chi2_nn"):
+        check(model_launches[name] > 0, f"the LBPH path launched no {name} kernel")
+    print("lbph_model", json.dumps({
+        "card": card, "rows": rows, "features": gallery.shape[1], "probes": len(probes),
+        "train_s": train_s, "predict_batch_s": predict_s, "launches": model_launches,
+    }), flush=True)
+    del faces, fresh
+
+    # chi2_nn at the full shape against its plain version
+    q = model.features(probes)
+    q[1] = gallery[int(planted[0])]  # a training row: distance 0, its lowest copy
+    g = gallery
+    dup = (rows // 3, rows - 2)
+    g[dup[1]] = g[dup[0]]  # duplicated rows: the lower index must win
+    q[2] = g[dup[0]]
+    best, idx = cn.chi2_nn(q, g)
+    torch.cuda.synchronize()
+    check(idx[2].item() == dup[0], f"duplicated rows {dup} came back as {idx[2].item()}")
+    t0 = time.perf_counter()
+    pbest, pidx, pd = cn.chi2_nn_plain(q, g, return_distances=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rel = ((best - pbest).abs() / pbest.abs().clamp(min=1e-30)).max().item()
+    err = (best - pbest).abs().max().item()
+    check(rel <= 1e-5, f"chi2_nn: nearest distance differs from plain by {rel} relative")
+    top2 = torch.topk(pd, 2, dim=1, largest=False).values
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * top2[:, 1]
+    check(bool((idx[clear] == pidx[clear]).all()), "chi2_nn: nearest rows differ from plain")
+    _, _, kd = cn.chi2_nn(q[:8], g[:CHI2_CHECK_ROWS], return_distances=True)
+    emulated = cn.chi2_distances_kernel_order(q[:8], g[:CHI2_CHECK_ROWS])
+    check(torch.equal(kd, emulated), "chi2_nn distances differ from the kernel-order emulation")
+    drel = ((kd - pd[:8, :CHI2_CHECK_ROWS]).abs()
+            / pd[:8, :CHI2_CHECK_ROWS].abs().clamp(min=1e-30)).max().item()
+    check(drel <= 1e-5, f"chi2_nn distances differ from plain by {drel} relative")
+    err = max(err, (kd - pd[:8, :CHI2_CHECK_ROWS]).abs().max().item())
+    del pd, top2, kd, emulated
+    kernel = lambda: cn.chi2_nn(q, g)  # noqa: E731
+
+    def library():
+        # the chunked PyTorch expression of the distance, then torch.min
+        out = torch.empty((q.shape[0], g.shape[0]), device=device)
+        step = max(1, (1 << 28) // (q.shape[0] * q.shape[1]))
+        for n0 in range(0, g.shape[0], step):
+            x, y = q[:, None, :], g[None, n0 : n0 + step]
+            s_, d_ = x + y, x - y
+            out[:, n0 : n0 + step] = 2.0 * torch.where(
+                s_ > 0, d_ * d_ / s_.clamp(min=1e-20), 0.0).sum(-1)
+        return torch.min(out, dim=1)
+
+    lib = library()
+    check(bool((lib.indices[clear] == idx[clear]).all()), "the library expression's rows differ")
+    chi2 = {"B": q.shape[0], "N": g.shape[0], "F": g.shape[1], "max_abs_err": err,
+            "max_rel_err": max(rel, drel),
+            "nearest_checked": int(clear.sum()), "plain_s": plain_s}
+    chi2["ms"] = statistics.median(cuda_ms(kernel, 3, 1) for _ in range(3))
+    chi2["library_ms"] = cuda_ms(library, 1, 0)
+    chi2["plain_ms"] = plain_s * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel()
+    torch.cuda.synchronize()
+    chi2["wall_ms_one_call"] = (time.perf_counter() - t0) * 1e3
+    # Late in a run the profiler loses chi2_partial's events (tens of ms
+    # each) or halves their time, so ``ms`` (CUDA events, as the one call's
+    # wall) is the device time; the trace is printed as it came.
+    chi2["profiler_events_us_per_call"] = {
+        name: [count, us] for name, (count, us) in profile_kernels(kernel, calls=2).items()}
+    needed = chi2_needed_terms(q, g)
+    moved = (q.numel() + g.numel()) * 4 + q.shape[0] * 12
+    chi2["needed_terms"] = needed
+    chi2["dense_terms"] = q.shape[0] * g.shape[0] * g.shape[1]
+    chi2["bound_bytes_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    chi2["bound_ops_ms"] = needed * FP32_OPS_PER_TERM / FP32_FLOPS_PER_S * 1e3
+    chi2["bound_ms"] = max(chi2["bound_bytes_ms"], chi2["bound_ops_ms"])
+    chi2["bound_by"] = "bytes" if chi2["bound_bytes_ms"] >= chi2["bound_ops_ms"] else "operations"
+    chi2["under_load"] = clocks_under_load(kernel, 3.0)
+    print("chi2_nn", json.dumps(chi2), flush=True)
+    del q, g, gallery, model, lib
+    torch.cuda.empty_cache()
+
+    # the model's API on the striped classes, card against the CPU port
+    rng = np.random.default_rng(SEED + 19)
+    images, labels = [], []
+    for c in range(3):
+        for _ in range(5):
+            img = rng.integers(0, 100, (60, 60)).astype(np.uint8)
+            img[:: c + 2, :] = 220
+            images.append(img)
+            labels.append(c)
+    images, labels = np.stack(images), np.array(labels)
+    per_call = {}
+    models = {}
+    for dev in (device, "cpu"):
+        m = LBPHModel(device=dev)
+        m.train(images[:10], labels[:10])
+        m.update(images[10:], labels[10:])
+        models[str(dev)] = m
+    card_m, cpu_m = models[str(device)], models["cpu"]
+    check(np.array_equal(card_m.histograms, cpu_m.histograms), "LBPH histograms differ from the CPU")
+    for probe in [images[0], images[7] // 2 + 10] + [images[i] for i in (3, 12)]:
+        for name, call in (("predict", lambda m: m.predict(probe)),
+                           ("predict_topk", lambda m: m.predict_topk(probe, k=3)),
+                           ("recognize_face", lambda m: recognize_face(m, probe, {0: "a", 1: "b"}))):
+            counters = reset_counters()
+            got = call(card_m)
+            per_call[name] = {k: c.count for k, c in counters.items() if c.count}
+            want = call(cpu_m)
+            if name == "predict":
+                check(got[0] == want[0] and abs(got[1] - want[1]) <= 1e-5 * max(1.0, want[1]),
+                      f"LBPH predict {got} vs CPU {want}")
+            elif name == "predict_topk":
+                check([lab for lab, _ in got] == [lab for lab, _ in want],
+                      f"LBPH predict_topk {got} vs CPU {want}")
+            else:
+                check(got["identity"] == want["identity"], f"recognize_face {got} vs CPU {want}")
+    counters = reset_counters()
+    got = card_m.predict_batch(images, probe_chunk=4)
+    per_call["predict_batch (15 images, 4 a call)"] = {k: c.count for k, c in counters.items() if c.count}
+    want = cpu_m.predict_batch(images, probe_chunk=4)
+    check(np.array_equal(got[0], want[0]) and np.allclose(got[1], want[1], rtol=1e-5, atol=1e-6),
+          "LBPH predict_batch differs from the CPU")
+    print("lbph_api", json.dumps({"card": card, "agree_with_cpu": True,
+                                  "launches_per_call": per_call}), flush=True)
+    return hist_lines[0], chi2, model_launches
+
+
+def staged_phase(card: str, model_type: str = "arcface",
+                 kinds: tuple = ("dense", "stream", "int8")) -> dict:
     """The staged API on the card against the CPU port: ``add_to_db`` of
     three identities (two images each), then ``recognize``,
-    ``recognize_batch`` and ``recognize_all`` with the dense, stream and
-    int8 matchers. Identities and top-k names equal; confidences within
-    1e-4 (dense, stream) or ``INT8_TOL`` (int8: a query code can flip).
-    Every kernel the staged path runs must launch."""
+    ``recognize_batch`` and ``recognize_all`` with each matcher of
+    ``kinds``. Identities and top-k names equal; confidences within 1e-4
+    (dense, stream) or ``INT8_TOL`` (int8: a query code can flip); each
+    embedding's cosine with the CPU's above 0.999. Every kernel the staged
+    path runs must launch."""
     import numpy as np
 
     from facerecognition_tpu_torch.inference.engine import RecognitionEngine
-    from facerecognition_tpu_torch.inference.extract_embeddings import (
-        default_arcface_checkpoint,
-        load_arcface_model,
-    )
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
 
     rng = np.random.default_rng(SEED + 11)
@@ -1119,7 +1411,7 @@ def staged_phase(card: str) -> dict:
 
     def build(device):
         engine = RecognitionEngine(
-            load_arcface_model(default_arcface_checkpoint(), device=device),
+            load_embedder(model_type, device),
             detector=FaceDetector(confidence_threshold=0.0, min_face_size=0, max_faces=4,
                                   device=device),
             device=device,
@@ -1137,8 +1429,8 @@ def staged_phase(card: str) -> dict:
         row = card_engine.gallery._index[f"enrolled{i}"]
         cos = float(card_engine.gallery._store[row] @ cpu_engine.gallery._store[row])
         check(cos > 0.9999, f"enrolled{i}: card vs CPU mean embedding cosine {cos}")
-    worst = {}
-    for kind in ("dense", "stream", "int8"):
+    worst, worst_cos = {}, 1.0
+    for kind in kinds:
         tol = INT8_TOL if kind == "int8" else 1e-4
         out = []
         for e in (card_engine, cpu_engine):
@@ -1157,13 +1449,22 @@ def staged_phase(card: str) -> dict:
             check(g["identity"] == r["identity"], f"{kind} result {n}: {g['identity']} vs CPU {r['identity']}")
             check(abs(g["confidence"] - r["confidence"]) <= tol,
                   f"{kind} result {n}: confidence {g['confidence']} vs CPU {r['confidence']}")
+            cos = float(g["embedding"] @ r["embedding"]
+                        / (np.linalg.norm(g["embedding"]) * np.linalg.norm(r["embedding"])))
+            check(cos > 0.999, f"{kind} result {n}: card vs CPU embedding cosine {cos}")
+            worst_cos = min(worst_cos, cos)
             err = max(err, same_top_k(g["top_k"], r["top_k"], tol, f"{kind} result {n}"))
         worst[kind] = err
     launches = {name: c.count for name, c in counters.items()}
-    for name in ("stream_topk", "int8_topk", "warp_sample", "detect_post"):
+    path = ("warp_sample", "detect_post") + (("stream_topk",) if "stream" in kinds else ()) + (
+        ("int8_topk",) if "int8" in kinds else ())
+    for name in path:
         check(launches[name] > 0, f"the staged path launched no {name} kernel")
-    print("staged", json.dumps({"card": card, "results_per_matcher": len(got),
-                                "max_abs_confidence_diff": worst, "launches": launches}), flush=True)
+    print("staged", json.dumps({"card": card, "model_type": model_type,
+                                "results_per_matcher": len(got),
+                                "max_abs_confidence_diff": worst,
+                                "min_embedding_cosine": worst_cos, "launches": launches}),
+          flush=True)
     return launches
 
 
@@ -1301,7 +1602,7 @@ def main() -> int:
         print(f"torch {torch.__version__} CUDA {torch.version.cuda}: {card}", flush=True)
 
     with phase("build"):
-        for built in _build.build(["stream_topk", "warp_sample", "detect_post", "int8_topk"]):
+        for built in _build.build(list(KERNELS)):
             print(f"{built.name}: nvcc {built.seconds:.2f} s -> {built.path}", flush=True)
             for line in built.log.splitlines():
                 entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1343,6 +1644,14 @@ def main() -> int:
 
     with phase("blaze"):
         blaze = blaze_phase(smi)
+
+    with phase("lbph"):
+        lbph_main, chi2_main, lbph_launches = lbph_phase(smi, device)
+
+    with phase("facenet"):
+        facenet, facenet_profile, _ = serving_phase(smi, 1, model_type="facenet")
+        facenet_crowd, _, _ = serving_phase(smi, CROWD_FACES, model_type="facenet")
+        facenet_staged = staged_phase(smi, "facenet", ("stream",))
 
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
@@ -1386,6 +1695,8 @@ def main() -> int:
                 (("embedder_input_window", True),
                  "embedder_input window B=32 x M=4 256x256 -> 112x112, fast=True",
                  "facerecognition_tpu/ops/warp_mxu.py:264", crowd),
+                (("embedder_input_160", True), "embedder_input align B=128 256x256 -> 160x160, fast=True",
+                 "facerecognition_tpu/ops/warp_mxu.py:249", facenet),
             )
         ),
         {
@@ -1419,6 +1730,40 @@ def main() -> int:
             "bound_by": int8_main["bound_by"],
             "library_ms": int8_main["library_ms"],
         },
+        {
+            "name": "lbph_hist",
+            "design": "a block per (cell, image): codes in registers by XLA's tap plan, "
+                      "histogram in shared memory by atomicAdd, one write per bin",
+            "case": "B={B} 100x100 r={radius} P={neighbors} grid {grid[0]}x{grid[1]}".format(**lbph_main),
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/lbph_hist.cu",
+            "replaces": "facerecognition_tpu/models/lbph.py:101",
+            "launches": lbph_launches["lbph_hist"],
+            "max_abs_err": 0.0,
+            "ms": lbph_main["ms"],
+            "plain_ms": lbph_main["plain_ms"],
+            "bound_ms": lbph_main["bound_ms"],
+            "bound_by": lbph_main["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "chi2_nn",
+            "design": "32 queries x 128 rows a block, feature chunks of 32 staged in shared memory, "
+                      "a fixed sum order per row, per-block minima merged by a warp per query",
+            "case": "B={B} N={N} F={F}".format(**chi2_main),
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/chi2_nn.cu",
+            "replaces": "facerecognition_tpu/models/lbph.py:115",
+            "launches": lbph_launches["chi2_nn"],
+            "max_abs_err": chi2_main["max_abs_err"],
+            "max_rel_err": chi2_main["max_rel_err"],
+            "ms": chi2_main["ms"],
+            "plain_ms": chi2_main["plain_ms"],
+            "bound_ms": chi2_main["bound_ms"],
+            "bound_by": chi2_main["bound_by"],
+            "library_ms": chi2_main["library_ms"],
+            "library": "chunked PyTorch expression of the distance + torch.min",
+        },
     ]
     print("fused int8 vs stream", json.dumps({
         kind: {**{key: profile[key] for key in ("wall_ms", "device_ms", "host_gap_ms",
@@ -1428,6 +1773,11 @@ def main() -> int:
     print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
     print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}",
           flush=True)
+    print("facenet", json.dumps({
+        "launches": {"one_face": facenet, "crowd": facenet_crowd, "staged": facenet_staged},
+        "fused_profile": {key: facenet_profile[key] for key in (
+            "wall_ms", "device_ms", "host_gap_ms", "launches_per_call", "copies_per_call")},
+    }), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -25,6 +25,7 @@ from facerecognition_tpu_torch.inference.extract_embeddings import (
     Embedder,
     batch_bucket,
     load_arcface_model,
+    load_facenet_model,
 )
 from facerecognition_tpu_torch.models.detector_net import detect_best_face
 from facerecognition_tpu_torch.ops import warp_sample
@@ -42,6 +43,8 @@ from facerecognition_tpu_torch.ops.warp_sample import detector_input, embedder_i
 from facerecognition_tpu_torch.utils.imageio import load_image
 
 MATCH_KERNELS = ("auto", "dense", "stream", "int8")
+#: Embedder loaders by ``model_type``.
+LOADERS = {"arcface": load_arcface_model, "facenet": load_facenet_model}
 #: Crowd-path crop window per slot, as the JAX engine's ``_CROWD_WINDOW``:
 #: frames with min(H, W) above it warp each slot from a window² crop.
 CROWD_WINDOW = 160
@@ -294,7 +297,11 @@ class RecognitionEngine:
     ``'auto'`` as the JAX package (dense on the padded store, and in
     ``match`` the streaming kernel on the exact-N matrix when the dense
     scores would pressure device memory). ``detector=None`` embeds whole
-    images (pre-aligned crops). ``device=None`` means the CUDA card.
+    images (pre-aligned crops). Without an ``embedder``, ``model_type``
+    (``'arcface'``, 112² inputs, or ``'facenet'``, 160²) and
+    ``checkpoint_path`` choose one (None: random weights, for tests); the
+    fused path aligns to the embedder's input size. ``device=None`` means
+    the CUDA card.
     """
 
     def __init__(
@@ -303,6 +310,7 @@ class RecognitionEngine:
         gallery: Optional[Gallery] = None,
         detector=None,
         threshold: float = 0.5,
+        model_type: str = "arcface",
         checkpoint_path: Optional[str] = None,
         match_kernel: str = "auto",
         device: DeviceLike = None,
@@ -310,8 +318,10 @@ class RecognitionEngine:
         self.device = resolve_device(device)
         if match_kernel not in MATCH_KERNELS:
             raise ValueError(f"unknown match_kernel {match_kernel!r}; have {MATCH_KERNELS}")
+        if model_type not in LOADERS:
+            raise ValueError(f"unknown model_type {model_type!r}; have {tuple(LOADERS)}")
         if embedder is None:
-            embedder = load_arcface_model(checkpoint_path, device=self.device)
+            embedder = LOADERS[model_type](checkpoint_path, device=self.device)
         self.embedder = embedder
         self.gallery = gallery if gallery is not None else Gallery(
             embedder.config.embedding_size, device=self.device
@@ -689,20 +699,23 @@ class RecognitionEngine:
 def create_engine_from_embeddings_dir(
     model_path: Optional[str],
     embeddings_dir: str,
+    model_type: str = "arcface",
     threshold: float = 0.5,
     detector: Any = "default",
     device: DeviceLike = None,
 ) -> RecognitionEngine:
-    """An ArcFace engine whose gallery is ``face_db.npy``, else the first
-    ``.npy`` dict that loads, in ``embeddings_dir``. ``detector="default"``
-    builds the shipped ``FaceDetector``; pass None to embed whole images."""
+    """A ``model_type`` engine whose gallery is ``face_db.npy``, else the
+    first ``.npy`` dict that loads, in ``embeddings_dir``.
+    ``detector="default"`` builds the shipped ``FaceDetector``; pass None to
+    embed whole images."""
     device = resolve_device(device)
     if detector == "default":
         from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
 
         detector = FaceDetector(device=device)
     engine = RecognitionEngine(
-        checkpoint_path=model_path, threshold=threshold, detector=detector, device=device
+        model_type=model_type, checkpoint_path=model_path, threshold=threshold,
+        detector=detector, device=device,
     )
     candidates = [os.path.join(embeddings_dir, "face_db.npy")] + [
         os.path.join(embeddings_dir, f) for f in sorted(os.listdir(embeddings_dir)) if f.endswith(".npy")

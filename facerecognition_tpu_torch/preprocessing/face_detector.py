@@ -4,15 +4,15 @@ multi-face detection on one image.
 Counterpart of ``facerecognition_tpu/preprocessing/face_detector.py``: the
 checkpoint resolvers, what ``RecognitionEngine.fused_recognize_frames``
 reads (net, anchors, Platt calibration, thresholds, input size, IoU
-threshold), and ``detect_all``/``detect`` on an image array. ``detect_batch``
-(paths into a DataFrame), ``crop_face`` and ``visualize`` wait (ROADMAP
-Queue 1), and so do image paths: the port reads no image files.
+threshold), and ``detect_all``/``detect``/``crop_face``/``visualize`` on an
+image array. ``detect_batch`` (paths into a DataFrame) waits (ROADMAP Queue
+1), and so do image paths: the port reads no image files.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ from facerecognition_tpu_torch.models.detector_net import (
     build_detector_net,
 )
 from facerecognition_tpu_torch.ops.detect_post import detect_post
-from facerecognition_tpu_torch.ops.image import bilinear_resize
+from facerecognition_tpu_torch.ops.image import bilinear_resize, crop_with_margin
 from facerecognition_tpu_torch.utils.imageio import load_image
 from facerecognition_tpu_torch.utils.serialization import load_variables
 
@@ -189,3 +189,47 @@ class FaceDetector:
                 reverse=True,
             )
         return faces[0]
+
+    def crop_face(
+        self,
+        image,
+        bbox: Optional[Sequence[float]] = None,
+        margin: float = 0.2,
+        target_size: int = 112,
+    ) -> Optional[np.ndarray]:
+        """``bbox`` (or the ``detect`` face's) with a relative ``margin``,
+        resized to ``target_size``²: uint8 (clipped), or None without a
+        face."""
+        img = load_image(image)
+        if bbox is None:
+            det = self.detect(img)
+            if det is None:
+                return None
+            bbox = det["bbox"]
+        out = crop_with_margin(
+            torch.as_tensor(np.asarray(img, np.float32), device=self.device),
+            torch.as_tensor(np.asarray(bbox, np.float32), device=self.device),
+            margin,
+            target_size,
+        )
+        return np.clip(out.cpu().numpy(), 0, 255).astype(np.uint8)
+
+    def visualize(self, image, detections: Optional[list[dict]] = None) -> np.ndarray:
+        """The image with each face's box (green, 2 px) and landmarks (red
+        3x3 dots) drawn: RGB uint8."""
+        img = load_image(image).copy()
+        if detections is None:
+            detections = self.detect_all(img)
+        for det in detections:
+            x1, y1, x2, y2 = (int(round(v)) for v in det["bbox"])
+            x1, x2 = np.clip([x1, x2], 0, img.shape[1] - 1)
+            y1, y2 = np.clip([y1, y2], 0, img.shape[0] - 1)
+            img[y1:y2, x1 : x1 + 2] = (0, 255, 0)
+            img[y1:y2, x2 - 1 : x2 + 1] = (0, 255, 0)
+            img[y1 : y1 + 2, x1:x2] = (0, 255, 0)
+            img[y2 - 1 : y2 + 1, x1:x2] = (0, 255, 0)
+            for lx, ly in det.get("landmarks") or []:
+                lx, ly = int(round(lx)), int(round(ly))
+                if 1 <= lx < img.shape[1] - 1 and 1 <= ly < img.shape[0] - 1:
+                    img[ly - 1 : ly + 2, lx - 1 : lx + 2] = (255, 0, 0)
+        return img
