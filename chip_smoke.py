@@ -68,16 +68,20 @@ Phases, each printing its wall seconds:
     CPU port.
 11. blaze: ``detector_v2_128`` through ``detect_all`` and one fused call
     (M = 4, int8), against the CPU port.
-12. lbph: ``lbph_hist`` at B = 128, 100², (r 1, 8x8) and (r 2, 5x4), and at
-    16 neighbours, bit for bit against its plain version; ``LBPHModel``
-    trained on 75,000 faces on the card and 128 probes through
+12. lbph: ``lbph_hist`` at B = 128, 100², (r 1, 8x8) and (r 2, 5x4), at
+    16 neighbours and at B = 4096 (timed), bit for bit against its plain
+    version; ``LBPHModel`` trained on 75,000 faces on the card (the
+    gallery's ``chi2_row_stats`` computed there) and 128 probes through
     ``predict_batch`` (planted faces come back at distance 0); ``chi2_nn``
-    at (128, 75,000, 16,384) against its plain version (nearest rows,
-    distances within 1e-5 relative), bit for bit against the kernel's
-    summation order on a block of rows, duplicates to the lower index,
-    timed against the chunked PyTorch expression + ``torch.min``, with its
-    operations bound counted on the run's histograms; the model's API on
-    small data against the CPU port, with launches per call.
+    at (128, 75,000, 16,384): the nearest rows equal the kernel-order argmin
+    at every probe (planted, duplicated, near-duplicated, 300 equal rows,
+    fresh), within 1e-5 relative of the plain version, ``return_distances``
+    bit for bit against the kernel's summation order on a block of rows,
+    timed at (128, 75,000), (1, 75,000) and ``return_distances`` at (8,
+    4,096) against the chunked PyTorch expression + ``torch.min``, with the
+    filter's candidates per query and the terms counted on the run's
+    histograms; the model's API on small data against the CPU port, with
+    launches per call.
 13. facenet: the shipped ``facenet_synthid9k_512.msgpack`` (read by the
     port's msgpack reader; InceptionResnetV1 at 160²) as phases 7 and 8
     (one face and ``max_faces=4`` through ``MicroBatcher``, 100k gallery,
@@ -205,13 +209,18 @@ FACENET_WEIGHTS = "facenet_synthid9k_512.msgpack"
 # LBPH: 100² gray faces, the reference's 9,343-identity scale (~75k training
 # images), 128 probes. Bounds: the FP32 pipes' 67 TFLOP/s (H100 SXM, dense)
 # for the operations a chi-square term needs (add, subtract, square, divide,
-# accumulate) on the terms whose bins are not both empty.
+# accumulate) on the terms the function needs (see lbph_phase).
 FP32_OPS_PER_TERM = 5
-LBPH_SIDE = 100
-LBPH_CASES = ((WARP_B, 1, 8, 8, 8), (WARP_B, 2, 8, 5, 4), (8, 1, 16, 2, 2))  # (B, r, P, gx, gy)
+# (B, r, P, gx, gy, side): B = 4096 is the chunk LBPHModel.features
+# launches; 99² and 2 bins a cell take the kernel's scalar paths
+LBPH_CASES = ((WARP_B, 1, 8, 8, 8, 100), (WARP_B, 2, 8, 5, 4, 100), (8, 1, 16, 2, 2, 100),
+              (8, 1, 1, 3, 3, 99), (4096, 1, 8, 8, 8, 100))
 LBPH_IDENTITIES, LBPH_SAMPLES = 7_500, 10  # 75,000 gallery rows
 LBPH_PROBES = 128
 CHI2_CHECK_ROWS = 4_096  # rows the kernel-order emulation covers
+CHI2_OVERFLOW_ROW, CHI2_OVERFLOW_COPIES = 5_000, 300  # a block of equal rows
+# A model, not a reading: MUFU.RCP at 16 a cycle per SM (H100: 132 SMs, 1.98 GHz).
+MUFU_PER_S = 132 * 16 * 1.98e9
 
 
 class CheckFailed(RuntimeError):
@@ -992,7 +1001,8 @@ def _counters():
 
     return {"stream_topk": stream_topk.launches, "warp_sample": warp_sample.launches,
             "detect_post": detect_post.launches, "int8_topk": int8_topk.launches,
-            "lbph_hist": lbph_hist.launches, "chi2_nn": chi2_nn.launches}
+            "lbph_hist": lbph_hist.launches, "chi2_row_stats": chi2_nn.stats_launches,
+            "chi2_nn": chi2_nn.launches}
 
 
 def reset_counters() -> dict:
@@ -1163,35 +1173,81 @@ def serving_phase(card: str, max_faces: int, match_kernel: str = "stream",
     return launches, profile, lambda: engine.fused_recognize_frames(batch, max_faces=max_faces)
 
 
-def lbph_faces(gen, identities: int, samples: int, device):
-    """(identities·samples, 100, 100) float32 gray faces on the card, sample
-    s of identity i at row i·samples + s: each identity a blocky pattern of
-    its own, each sample it plus integer noise (a new draw for probes)."""
-    import torch
-
-    side = LBPH_SIDE
-    coarse = torch.randint(30, 226, (identities, 1, 13, 13), generator=gen, device=device)
-    base = torch.nn.functional.interpolate(coarse.float(), scale_factor=8, mode="nearest")
-    base = base[:, 0, :side, :side]
-    noise = torch.randint(-12, 13, (identities, samples, side, side), generator=gen, device=device)
-    faces = (base[:, None] + noise).clamp(0, 255).reshape(-1, side, side)
-    return faces.contiguous()
-
-
-def chi2_needed_terms(q, g) -> int:
-    """Terms of the chi-square sums whose bins are not both empty: B·N·F
-    less, per (query, row), the count of bins empty on both sides (an exact
-    float32 product of 0/1 masks, F < 2^24)."""
+def chi2_term_counts(q, g) -> dict:
+    """The chi-square terms of (q, g) by kind: ``needed_terms`` (bins not
+    both empty: what the exact form visits), ``both_nonzero_terms`` (the
+    filter's P), ``filter_terms`` (the query's non-zero bins against every
+    row: what the filter's loop visits) and ``dense_terms`` (B·N·F). Counts
+    of 0/1 products in float32, exact below 2^24 a product."""
     import torch
 
     from facerecognition_tpu_torch.device import strict_fp32
 
-    zq = (q == 0).float()
-    both = 0.0
+    zq, nq = (q == 0).float(), (q != 0).float()
+    both_zero = both_nonzero = 0.0
     with strict_fp32():
         for n0 in range(0, g.shape[0], 16_384):
-            both += float((zq @ (g[n0 : n0 + 16_384] == 0).float().T).double().sum())
-    return int(q.shape[0] * g.shape[0] * q.shape[1] - both)
+            rows = g[n0 : n0 + 16_384]
+            both_zero += float((zq @ (rows == 0).float().T).double().sum())
+            both_nonzero += float((nq @ (rows != 0).float().T).double().sum())
+    dense = q.shape[0] * g.shape[0] * q.shape[1]
+    return {"needed_terms": int(dense - both_zero), "both_nonzero_terms": int(both_nonzero),
+            "filter_terms": int(nq.sum().item()) * g.shape[0], "dense_terms": dense}
+
+
+def kernel_order_nearest(q, g, rows: int = 256):
+    """Each query's nearest row by ``chi2_distances_kernel_order`` (the
+    kernels' summation order), ``rows`` gallery rows at a time: NaN first,
+    then the smaller distance, then the lower index."""
+    import torch
+
+    from facerecognition_tpu_torch.ops import chi2_nn as cn
+
+    best = torch.full((q.shape[0],), float("inf"), device=q.device)
+    idx = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for n0 in range(0, g.shape[0], rows):
+        v, i = cn.nearest(cn.chi2_distances_kernel_order(q, g[n0 : n0 + rows]))
+        nan_v, nan_b = torch.isnan(v), torch.isnan(best)
+        better = (nan_v & ~nan_b) | (~nan_v & ~nan_b & (v < best))
+        best = torch.where(better, v, best)
+        idx = torch.where(better, i + n0, idx)
+    return best, idx
+
+
+def chi2_irregular_case(device) -> None:
+    """``chi2_nn`` at a width that is not a multiple of 32, a gallery that
+    ends inside a tile, duplicated rows, NaN and infinite bins (rows and
+    queries the filter cannot bound): both paths equal the kernel-order
+    emulation, nearest rows and distances, NaN where it has NaN."""
+    import torch
+
+    from facerecognition_tpu_torch.ops import chi2_nn as cn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+
+    def rows(n):
+        return (torch.randint(1, 20, (n, 100), generator=gen, device=device) / 144.0
+                * (torch.rand(n, 100, generator=gen, device=device) < 0.3))
+
+    g, q = rows(3001), rows(6)
+    q[0] = g[17]
+    g[2000] = g[17]
+    g[40, 3], g[41, 7] = float("nan"), float("-inf")  # terms of 0; rows the filter cannot bound
+    q[1] = g[40]
+    q[2, 9], q[3] = float("inf"), 0.0  # query 2: NaN against every row, the lowest wins
+    want = cn.chi2_distances_kernel_order(q, g)
+    wbest, widx = cn.nearest(want)
+    best, idx = cn.chi2_nn(q, g)
+    dbest, didx, d = cn.chi2_nn(q, g, return_distances=True)
+
+    def same(a, b):
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    check(torch.equal(idx, widx) and torch.equal(didx, widx) and same(best, wbest)
+          and same(dbest, wbest) and same(d, want),
+          f"chi2_nn at F = 100 with NaN/inf bins: rows {idx.tolist()} / {didx.tolist()}, "
+          f"want {widx.tolist()}")
+    print("chi2_nn irregular", json.dumps({"F": 100, "N": 3001, "rows": idx.tolist()}), flush=True)
 
 
 def lbph_phase(card: str, device):
@@ -1217,21 +1273,23 @@ def lbph_phase(card: str, device):
     from facerecognition_tpu_torch.models.lbph_tools import recognize_face
     from facerecognition_tpu_torch.ops import chi2_nn as cn
     from facerecognition_tpu_torch.ops import lbph_hist as lh
+    from facerecognition_tpu_torch.tools.lbph_data import lbph_faces
 
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     hist_lines = []
-    for b, r, p, gx, gy in LBPH_CASES:
-        imgs = lbph_faces(gen, b, 1, device)
+    for b, r, p, gx, gy, side in LBPH_CASES:
+        imgs = lbph_faces(gen, b, 1, device)[:, :side, :side].contiguous()
         imgs[0, 20:60, 30:80] = 131.0  # a flat region: the fused taps decide its bits
         kernel = lambda: lh.lbph_hist(imgs, r, p, gx, gy)  # noqa: E731
         plain = lambda: lh.lbph_features_plain(imgs, r, p, gx, gy)  # noqa: E731
         got = kernel()
         torch.cuda.synchronize()
         check(torch.equal(got, plain()), f"lbph_hist r={r} P={p} {gx}x{gy}: differs from plain")
-        check(torch.equal(got.cpu(), lh.lbph_features_plain(imgs.cpu(), r, p, gx, gy)),
-              f"lbph_hist r={r} P={p} {gx}x{gy}: differs from the plain version on the CPU")
-        line = {"B": b, "radius": r, "neighbors": p, "grid": [gx, gy], "bit_equal": True,
-                "max_abs_err": 0.0}
+        if b <= WARP_B:
+            check(torch.equal(got.cpu(), lh.lbph_features_plain(imgs.cpu(), r, p, gx, gy)),
+                  f"lbph_hist r={r} P={p} {gx}x{gy}: differs from the plain version on the CPU")
+        line = {"B": b, "side": side, "radius": r, "neighbors": p, "grid": [gx, gy],
+                "bit_equal": True, "max_abs_err": 0.0}
         line["trace"], line["device_us"] = kernel_trace(kernel, "lbph_hist")
         line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
         line["plain_ms"] = cuda_ms(plain, 3, 1)
@@ -1263,7 +1321,7 @@ def lbph_phase(card: str, device):
     check(bool((pred[: len(planted)] == labels[planted]).all()), "a training face came back mislabelled")
     check(bool((conf[: len(planted)] == 0.0).all()), "a training face is not at distance 0")
     model_launches = {name: c.count for name, c in counters.items()}
-    for name in ("lbph_hist", "chi2_nn"):
+    for name in ("lbph_hist", "chi2_row_stats", "chi2_nn"):
         check(model_launches[name] > 0, f"the LBPH path launched no {name} kernel")
     print("lbph_model", json.dumps({
         "card": card, "rows": rows, "features": gallery.shape[1], "probes": len(probes),
@@ -1271,16 +1329,36 @@ def lbph_phase(card: str, device):
     }), flush=True)
     del faces, fresh
 
-    # chi2_nn at the full shape against its plain version
+    # chi2_nn at the full shape: the exact kernel-order argmin at planted,
+    # duplicated, near-duplicated, overflowing and fresh probes; the plain
+    # version; the return_distances path bit for bit on a block of rows
     q = model.features(probes)
-    q[1] = gallery[int(planted[0])]  # a training row: distance 0, its lowest copy
     g = gallery
     dup = (rows // 3, rows - 2)
     g[dup[1]] = g[dup[0]]  # duplicated rows: the lower index must win
+    ov = CHI2_OVERFLOW_ROW
+    g[ov + 1 : ov + 1 + CHI2_OVERFLOW_COPIES] = g[ov]  # hundreds of rows within the margin
+    near = int(planted[3])
+    q[1] = g[int(planted[0])]  # a training row: distance 0
     q[2] = g[dup[0]]
-    best, idx = cn.chi2_nn(q, g)
+    q[3] = g[near]  # a near-duplicate: counts moved between bins of one cell
+    bins = q[3, :256].nonzero()[:3, 0]
+    inv_cell = q[3][q[3] > 0].min()
+    q[3, bins[0]] += 2 * inv_cell
+    q[3, bins[1:]] -= inv_cell
+    q[4] = g[ov]
+    stats = cn.chi2_row_stats(g)  # the gallery changed under the model
+    cand = torch.zeros(q.shape[0], dtype=torch.int32, device=device)
+    best, idx = cn.chi2_nn(q, g, gallery_stats=stats, candidates=cand)
     torch.cuda.synchronize()
+    kbest, kidx = kernel_order_nearest(q, g)
+    check(torch.equal(idx, kidx) and torch.equal(best, kbest),
+          f"chi2_nn differs from the kernel-order argmin at {(idx != kidx).nonzero()[:, 0].tolist()}")
+    check(best[1].item() == 0.0, "the planted training row is not at distance 0")
     check(idx[2].item() == dup[0], f"duplicated rows {dup} came back as {idx[2].item()}")
+    check(idx[3].item() == near and best[3].item() > 0.0, f"the near-duplicate came back as {idx[3].item()}")
+    check(idx[4].item() == ov and cand[4].item() > CHI2_OVERFLOW_COPIES,
+          f"the overflow probe came back as {idx[4].item()} from {cand[4].item()} candidates")
     t0 = time.perf_counter()
     pbest, pidx, pd = cn.chi2_nn_plain(q, g, return_distances=True)
     torch.cuda.synchronize()
@@ -1298,8 +1376,20 @@ def lbph_phase(card: str, device):
             / pd[:8, :CHI2_CHECK_ROWS].abs().clamp(min=1e-30)).max().item()
     check(drel <= 1e-5, f"chi2_nn distances differ from plain by {drel} relative")
     err = max(err, (kd - pd[:8, :CHI2_CHECK_ROWS]).abs().max().item())
+    masks, sums = cn.row_stats_plain(g[:CHI2_CHECK_ROWS])
+    check(torch.equal(stats[0][:CHI2_CHECK_ROWS], masks), "chi2_row_stats masks differ from plain")
+    check(torch.allclose(stats[1][:CHI2_CHECK_ROWS], sums, rtol=1e-12, atol=0.0),
+          "chi2_row_stats sums differ from plain")
     del pd, top2, kd, emulated
-    kernel = lambda: cn.chi2_nn(q, g)  # noqa: E731
+    # timed on the model's probes (planted and fresh: q[4] on the block of
+    # equal rows, whose 301 rows are all rescored, is timed apart)
+    typical = q.clone()
+    typical[4] = typical[5]
+    kernel = lambda: cn.chi2_nn(typical, g, gallery_stats=stats)  # noqa: E731
+    checked = lambda: cn.chi2_nn(q, g, gallery_stats=stats)  # noqa: E731
+    one = lambda: cn.chi2_nn(q[:1], g, gallery_stats=stats)  # noqa: E731  predict's shape
+    q8, g8 = q[:8].contiguous(), g[:CHI2_CHECK_ROWS]
+    exact = lambda: cn.chi2_nn(q8, g8, return_distances=True)  # noqa: E731
 
     def library():
         # the chunked PyTorch expression of the distance, then torch.min
@@ -1315,9 +1405,14 @@ def lbph_phase(card: str, device):
     lib = library()
     check(bool((lib.indices[clear] == idx[clear]).all()), "the library expression's rows differ")
     chi2 = {"B": q.shape[0], "N": g.shape[0], "F": g.shape[1], "max_abs_err": err,
-            "max_rel_err": max(rel, drel),
-            "nearest_checked": int(clear.sum()), "plain_s": plain_s}
+            "max_rel_err": max(rel, drel), "exact_argmin_probes": q.shape[0],
+            "nearest_checked": int(clear.sum()), "plain_s": plain_s,
+            "candidates": {"max": int(cand.max()), "median": float(cand.float().median()),
+                           "total": int(cand.sum()), "overflow_probe": int(cand[4])}}
     chi2["ms"] = statistics.median(cuda_ms(kernel, 3, 1) for _ in range(3))
+    chi2["ms_with_overflow_probe"] = statistics.median(cuda_ms(checked, 3, 1) for _ in range(3))
+    chi2["ms_B1"] = statistics.median(cuda_ms(one, 5, 1) for _ in range(3))
+    chi2["return_distances_ms_8x4096"] = statistics.median(cuda_ms(exact, 5, 1) for _ in range(3))
     chi2["library_ms"] = cuda_ms(library, 1, 0)
     chi2["plain_ms"] = plain_s * 1e3
     torch.cuda.synchronize()
@@ -1325,23 +1420,39 @@ def lbph_phase(card: str, device):
     kernel()
     torch.cuda.synchronize()
     chi2["wall_ms_one_call"] = (time.perf_counter() - t0) * 1e3
-    # Late in a run the profiler loses chi2_partial's events (tens of ms
-    # each) or halves their time, so ``ms`` (CUDA events, as the one call's
-    # wall) is the device time; the trace is printed as it came.
+    # the profiler's kernels of each path (late in a run it may lose long
+    # events or halve them: ``ms`` is by CUDA events)
     chi2["profiler_events_us_per_call"] = {
-        name: [count, us] for name, (count, us) in profile_kernels(kernel, calls=2).items()}
-    needed = chi2_needed_terms(q, g)
-    moved = (q.numel() + g.numel()) * 4 + q.shape[0] * 12
-    chi2["needed_terms"] = needed
-    chi2["dense_terms"] = q.shape[0] * g.shape[0] * g.shape[1]
+        path: {name: [count, us] for name, (count, us) in profile_kernels(fn, calls=calls).items()}
+        for path, fn, calls in (("gallery stats", lambda: cn.chi2_row_stats(g), 5),
+                                ("filter B=128", kernel, 2), ("with the overflow probe", checked, 2),
+                                ("filter B=1", one, 5), ("return_distances 8x4096", exact, 5))}
+    names = {n.split("<")[0] for path in chi2["profiler_events_us_per_call"].values() for n in path}
+    check({"chi2_stats", "chi2_filter", "chi2_rescore", "chi2_exact", "chi2_merge"} <= names,
+          f"the profiler's trace lacks chi2_nn's kernels: {sorted(names)}")
+    chi2.update(chi2_term_counts(typical, g))
+    moved = (typical.numel() + g.numel()) * 4 + typical.shape[0] * 12
+    chi2["visited_share"] = chi2["filter_terms"] / chi2["dense_terms"]
     chi2["bound_bytes_ms"] = moved / HBM_BYTES_PER_S * 1e3
-    chi2["bound_ops_ms"] = needed * FP32_OPS_PER_TERM / FP32_FLOPS_PER_S * 1e3
+    # the operations the function needs on this data: with (q-g)^2/(q+g) =
+    # (q+g) - 4qg/(q+g) and the rows' sums, only the bins non-zero on both
+    # sides take arithmetic, plus the exact rescoring of one row a query
+    # (B·F terms)
+    chi2["bound_ops_ms"] = ((chi2["both_nonzero_terms"] + q.shape[0] * g.shape[1])
+                            * FP32_OPS_PER_TERM / FP32_FLOPS_PER_S * 1e3)
     chi2["bound_ms"] = max(chi2["bound_bytes_ms"], chi2["bound_ops_ms"])
+    # computed, not measured: the first design's bound (every term whose
+    # bins are not both empty), so shares compare across designs; and the
+    # kernel's reciprocals (one for two rows of a lane) at the MUFU rate
+    chi2["bound_ms_union_terms"] = max(
+        chi2["bound_bytes_ms"], chi2["needed_terms"] * FP32_OPS_PER_TERM / FP32_FLOPS_PER_S * 1e3)
+    chi2["mufu_model_ms"] = chi2["filter_terms"] / 2 / MUFU_PER_S * 1e3
     chi2["bound_by"] = "bytes" if chi2["bound_bytes_ms"] >= chi2["bound_ops_ms"] else "operations"
     chi2["under_load"] = clocks_under_load(kernel, 3.0)
     print("chi2_nn", json.dumps(chi2), flush=True)
-    del q, g, gallery, model, lib
+    del q, typical, g, gallery, model, lib, stats
     torch.cuda.empty_cache()
+    chi2_irregular_case(device)
 
     # the model's API on the striped classes, card against the CPU port
     rng = np.random.default_rng(SEED + 19)
@@ -1386,7 +1497,7 @@ def lbph_phase(card: str, device):
           "LBPH predict_batch differs from the CPU")
     print("lbph_api", json.dumps({"card": card, "agree_with_cpu": True,
                                   "launches_per_call": per_call}), flush=True)
-    return hist_lines[0], chi2, model_launches
+    return hist_lines[0], hist_lines[-1], chi2, model_launches
 
 
 def staged_phase(card: str, model_type: str = "arcface",
@@ -1646,7 +1757,7 @@ def main() -> int:
         blaze = blaze_phase(smi)
 
     with phase("lbph"):
-        lbph_main, chi2_main, lbph_launches = lbph_phase(smi, device)
+        lbph_main, lbph_big, chi2_main, lbph_launches = lbph_phase(smi, device)
 
     with phase("facenet"):
         facenet, facenet_profile, _ = serving_phase(smi, 1, model_type="facenet")
@@ -1732,8 +1843,9 @@ def main() -> int:
         },
         {
             "name": "lbph_hist",
-            "design": "a block per (cell, image): codes in registers by XLA's tap plan, "
-                      "histogram in shared memory by atomicAdd, one write per bin",
+            "design": "a block per band of cells: pixel rows and halo staged in shared memory, "
+                      "codes by XLA's tap plan as fma operands (no branch), int histograms in "
+                      "shared memory by atomicAdd, 16-byte writes",
             "case": "B={B} 100x100 r={radius} P={neighbors} grid {grid[0]}x{grid[1]}".format(**lbph_main),
             "route": "cuda",
             "source": "facerecognition_tpu_torch/csrc/lbph_hist.cu",
@@ -1741,6 +1853,8 @@ def main() -> int:
             "launches": lbph_launches["lbph_hist"],
             "max_abs_err": 0.0,
             "ms": lbph_main["ms"],
+            "device_us": lbph_main["device_us"],
+            "ms_B4096": lbph_big["ms"],
             "plain_ms": lbph_main["plain_ms"],
             "bound_ms": lbph_main["bound_ms"],
             "bound_by": lbph_main["bound_by"],
@@ -1748,16 +1862,24 @@ def main() -> int:
         },
         {
             "name": "chi2_nn",
-            "design": "32 queries x 128 rows a block, feature chunks of 32 staged in shared memory, "
-                      "a fixed sum order per row, per-block minima merged by a warp per query",
+            "design": "per-row masks of non-zero bins and sums; a filter over the bins non-zero on "
+                      "both sides (128 queries x 64 rows a block, cp.async double buffer, two rows a "
+                      "lane sharing one reciprocal) with proven bounds, "
+                      "then the rows it cannot rule out rescored exactly in the fixed order, "
+                      "skipping empty bins",
             "case": "B={B} N={N} F={F}".format(**chi2_main),
             "route": "cuda",
             "source": "facerecognition_tpu_torch/csrc/chi2_nn.cu",
             "replaces": "facerecognition_tpu/models/lbph.py:115",
             "launches": lbph_launches["chi2_nn"],
+            "row_stats_launches": lbph_launches["chi2_row_stats"],
             "max_abs_err": chi2_main["max_abs_err"],
             "max_rel_err": chi2_main["max_rel_err"],
             "ms": chi2_main["ms"],
+            "ms_with_overflow_probe": chi2_main["ms_with_overflow_probe"],
+            "ms_B1": chi2_main["ms_B1"],
+            "return_distances_ms_8x4096": chi2_main["return_distances_ms_8x4096"],
+            "candidates_max": chi2_main["candidates"]["max"],
             "plain_ms": chi2_main["plain_ms"],
             "bound_ms": chi2_main["bound_ms"],
             "bound_by": chi2_main["bound_by"],

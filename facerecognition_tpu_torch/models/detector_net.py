@@ -139,7 +139,7 @@ class BlazeFaceNet(nn.Module):
 DETECTOR_ARCHS = {"blaze": BlazeFaceNet, "dense": DenseDetNet}
 
 
-def build_detector_net(arch: str = "dense") -> nn.Module:
+def build_detector_net(arch: str = "blaze") -> nn.Module:
     """Detector backbone by the checkpoint's ``arch`` name."""
     try:
         return DETECTOR_ARCHS[arch]()

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from facerecognition_tpu_torch.device import DeviceLike, resolve_device
-from facerecognition_tpu_torch.ops.chi2_nn import chi2_alt_distances, chi2_nn
+from facerecognition_tpu_torch.ops.chi2_nn import chi2_alt_distances, chi2_nn, chi2_row_stats
 from facerecognition_tpu_torch.ops.lbph_hist import lbp_code_image, lbph_hist, spatial_histogram
 
 __all__ = [
@@ -53,7 +53,9 @@ class LBPHModel:
     ``predict_batch`` the nearest rows of a batch. ``histograms`` (N, F)
     float32 and ``labels`` (N,) int64 are numpy arrays, as in the JAX model;
     the histograms also stay on ``device`` (``device=None``: the card) as
-    the gallery the matcher reads.
+    the gallery the matcher reads, on the card with its ``chi2_row_stats``
+    (the masks of non-zero bins and the row sums), computed whenever the
+    gallery changes.
     """
 
     def __init__(
@@ -73,6 +75,7 @@ class LBPHModel:
         self.device = resolve_device(device)
         self.labels: Optional[np.ndarray] = None
         self._gallery: Optional[torch.Tensor] = None  # (N, F) on the device
+        self._stats: Optional[tuple[torch.Tensor, torch.Tensor]] = None  # chi2_row_stats(_gallery)
         self._host: Optional[np.ndarray] = None
 
     @property
@@ -89,11 +92,18 @@ class LBPHModel:
 
     @histograms.setter
     def histograms(self, value) -> None:
-        self._host = None if value is None else np.ascontiguousarray(value, np.float32)
-        self._gallery = None if value is None else torch.as_tensor(self._host, device=self.device)
+        host = None if value is None else np.ascontiguousarray(value, np.float32)
+        self._set_gallery(None if host is None else torch.as_tensor(host, device=self.device))
+        self._host = host
 
-    def _set_gallery(self, gallery: torch.Tensor) -> None:
+    def _set_gallery(self, gallery: Optional[torch.Tensor], stats=None) -> None:
+        """The gallery and, on the card, its stats (``stats``, or computed
+        here); the plain version on the CPU reads none."""
         self._gallery, self._host = gallery, None
+        if gallery is None or gallery.device.type == "cpu":
+            self._stats = None
+        else:
+            self._stats = chi2_row_stats(gallery) if stats is None else stats
 
     def features(self, images, chunk: int = 4096) -> torch.Tensor:
         """(N, H, W) gray images (or one (H, W)), numpy or a tensor → (N, F)
@@ -136,14 +146,17 @@ class LBPHModel:
             self._set_gallery(hist)
             self.labels = lab
         else:
-            self._set_gallery(torch.cat([self._gallery, hist]))
+            stats = None
+            if self._stats is not None:
+                stats = tuple(torch.cat(p) for p in zip(self._stats, chi2_row_stats(hist)))
+            self._set_gallery(torch.cat([self._gallery, hist]), stats)
             self.labels = np.concatenate([self.labels, lab])
 
     def predict(self, image) -> tuple[int, float]:
         """Nearest training histogram of one grayscale image: (label or -1,
         distance)."""
         gallery = self._trained()
-        best, idx = chi2_nn(self.features(image), gallery)
+        best, idx = chi2_nn(self.features(image), gallery, gallery_stats=self._stats)
         conf = float(best[0])
         label = int(self.labels[int(idx[0])]) if conf < self.threshold else -1
         return label, conf
@@ -153,7 +166,8 @@ class LBPHModel:
         ascending; equal distances keep the order in which the identities
         first appear in the training set, as the JAX model's stable sort."""
         gallery = self._trained()
-        _, _, dists = chi2_nn(self.features(image), gallery, return_distances=True)
+        _, _, dists = chi2_nn(self.features(image), gallery, return_distances=True,
+                              gallery_stats=self._stats)
         best: dict[int, float] = {}
         for label, d in zip(self.labels, dists[0].cpu().numpy()):
             lab = int(label)
@@ -168,7 +182,7 @@ class LBPHModel:
         feats = self.features(images)
         best_parts, conf_parts = [], []
         for i in range(0, len(feats), probe_chunk):
-            conf, idx = chi2_nn(feats[i : i + probe_chunk], gallery)
+            conf, idx = chi2_nn(feats[i : i + probe_chunk], gallery, gallery_stats=self._stats)
             best_parts.append(idx.cpu().numpy())
             conf_parts.append(conf.cpu().numpy())
         best = np.concatenate(best_parts)

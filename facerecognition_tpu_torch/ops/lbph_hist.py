@@ -207,9 +207,11 @@ class _Args(ctypes.Structure):
     ]
 
 
+@lru_cache(maxsize=None)
 def plan_words(radius: int, neighbors: int) -> np.ndarray:
     """``tap_plan`` as the kernel reads it: (neighbors, 16) int32, per
-    neighbour dy[4], dx[4], the weights' float32 bits[4], ops[3], 0."""
+    neighbour dy[4], dx[4], the weights' float32 bits[4], ops[3], 0
+    (read-only: cached)."""
     plan = tap_plan(radius, neighbors)
     words = np.zeros((neighbors, 16), np.int32)
     for n in range(neighbors):
@@ -217,17 +219,8 @@ def plan_words(radius: int, neighbors: int) -> np.ndarray:
         words[n, 4:8] = [dx for _, dx in plan.offsets[n]]
         words[n, 8:12] = np.asarray(plan.weights[n], np.float32).view(np.int32)
         words[n, 12:15] = plan.ops[n]
+    words.flags.writeable = False
     return words
-
-
-_plan_on_device: dict = {}
-
-
-def _device_plan(radius: int, neighbors: int, device: torch.device) -> torch.Tensor:
-    key = (radius, neighbors, device)
-    if key not in _plan_on_device:
-        _plan_on_device[key] = torch.as_tensor(plan_words(radius, neighbors), device=device)
-    return _plan_on_device[key]
 
 
 def _library() -> ctypes.CDLL:
@@ -258,10 +251,10 @@ def lbph_hist(
     if b == 0:
         return out
     dev = images.device
+    plan = plan_words(radius, neighbors)  # read by the launcher on the host
     args = _Args(
-        images=images.data_ptr(), plan=_device_plan(radius, neighbors, dev).data_ptr(),
-        out=out.data_ptr(), B=b, H=h, W=w, radius=radius, neighbors=neighbors,
-        grid_x=grid_x, grid_y=grid_y, cell_h=ch, cell_w=cw, inv_cell=_reciprocal(ch * cw),
+        images=images.data_ptr(), plan=plan.ctypes.data, out=out.data_ptr(), B=b, H=h, W=w,
+        radius=radius, neighbors=neighbors, grid_x=grid_x, grid_y=grid_y, cell_h=ch, cell_w=cw, inv_cell=_reciprocal(ch * cw),
     )
     err = _library().lbph_hist_launch(
         ctypes.byref(args), dev.index, torch.cuda.current_stream(dev).cuda_stream

@@ -12,6 +12,7 @@ image array. ``detect_batch`` (paths into a DataFrame) waits (ROADMAP Queue
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -97,10 +98,13 @@ class FaceDetector:
     builds one there from ``PRNGKey(0)``. ``device=None`` means the CUDA card.
     ``iou_threshold`` and ``max_faces`` set the NMS of ``detect_all`` (the
     fused engine takes its own ``max_faces`` and this ``iou_threshold``).
+    ``backend`` is ``"blazeface"``, the only one, as in the JAX detector; a
+    checkpoint without Platt calibration warns, as there.
     """
 
     def __init__(
         self,
+        backend: str = "blazeface",
         confidence_threshold: float = 0.9,
         min_face_size: int = 20,
         select_largest: bool = True,
@@ -110,6 +114,13 @@ class FaceDetector:
         weights: Optional[Union[str, Mapping]] = None,
         device: DeviceLike = None,
     ):
+        if backend != "blazeface":
+            raise ValueError(
+                f"backend {backend!r} not available — the TPU build ships the "
+                "single 'blazeface' jitted backend (covers the reference's "
+                "mtcnn/retinaface/opencv roles)"
+            )
+        self.backend = backend
         self.device = resolve_device(device)
         self.confidence_threshold = confidence_threshold
         self.min_face_size = min_face_size
@@ -124,6 +135,14 @@ class FaceDetector:
             net = random_blaze_net()
         else:
             self.arch, variables, self._calibration = load_detector_checkpoint(weights)
+            if self._calibration is None:
+                warnings.warn(
+                    "detector checkpoint has no 'calibration' key: raw "
+                    "focal-loss scores are deflated, so absolute "
+                    "confidence thresholds will under-detect. Fit one via "
+                    "training.train_detector.fit_score_calibration.",
+                    stacklevel=2,
+                )
             net = build_detector_net(self.arch)
             load_flax_variables(net, variables)
         self.net = net.to(self.device).eval()

@@ -1,12 +1,17 @@
-"""Where the time of ``detect_post``, ``warp_sample`` and ``int8_topk`` goes, on the card.
+"""Where the time of the port's hand-written kernels goes, on the card.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
-    python3 -m facerecognition_tpu_torch.tools.kernel_breakdown [SECTION ...]
+    python3 -m facerecognition_tpu_torch.tools.kernel_breakdown [--tree DIR] [SECTION ...]
 
 (every section, or those named: detect_post, warp_sample, int8_phases,
-int8_variants). It builds patched copies of the kernels' sources into the
-build directory (the sources in ``csrc/`` are not touched) and prints:
+int8_variants, chi2_phases, lbph_hist_phases, chi2_variants,
+lbph_variants; ``--tree
+DIR`` takes the sources and wrappers of the checkout at DIR, for example
+an earlier design of ``chi2_nn`` and ``lbph_hist`` from ``git archive
+<commit> facerecognition_tpu_torch``). It builds patched copies of the kernels'
+sources into the build directory (the sources in ``csrc/`` are not
+touched) and prints:
 
 - ``detect_post``: the cycles (``clock64``) of each phase of one frame's
   warp, median over the 128 frames of the crowd path's shape (896 anchors,
@@ -25,6 +30,21 @@ build directory (the sources in ``csrc/`` are not touched) and prints:
   other consumer's products, the bounded round off; taken in turns (each
   variant, then each again in reverse order), at the same shapes and on a
   gallery whose scores rise with the row.
+- ``chi2_phases``: the cycles of thread 0 of each block per phase of
+  ``chi2_nn`` at (128, 75,000, 16,384) and (1, 75,000) on chip_smoke.py's
+  histograms: the dense design's ``chi2_partial`` (staging a chunk, its
+  term loop, the epilogue) or the filter design's ``chi2_filter`` (waiting
+  for a staged chunk, the loop over the query bits, the epilogue), with
+  the call's ms;
+- ``lbph_hist_phases``: the same for ``lbph_hist`` at B = 128 and 4096
+  (a block per cell: zeroing, codes + atomics, write-out; a block per
+  band: zeroing, staging, codes + atomics, the last barrier, write-out);
+- ``chi2_variants``: the ms of ``chi2_nn`` as built and with one choice
+  undone each (no skipping, skipping without the filter, the filter
+  without prefetch), in turns, at the shapes of ``chi2_phases``;
+- ``lbph_variants``: the device µs of ``lbph_hist`` as built and with
+  every plan's taps read at their offsets in shared memory, in turns, at
+  B = 128 and 4096 (r 1) and B = 128 (r 2), every window printed.
 
 Each patch asserts the text it replaces, so a kernel that changed shape
 fails here loudly instead of measuring something else.
@@ -49,7 +69,10 @@ from facerecognition_tpu_torch.ops import int8_topk as it
 from facerecognition_tpu_torch.ops import matcher
 from facerecognition_tpu_torch.ops import warp_mxu, warp_sample as ws
 
-SOURCE_DIR = _build.CSRC_DIR
+PACKAGE_CSRC = _build.CSRC_DIR
+#: The sources the sections patch and the wrappers they call: this
+#: checkout's, or another tree's (``--tree DIR``).
+SOURCE_DIR = PACKAGE_CSRC
 PHASES = ("keys", "select", "counts", "tie search", "compaction", "sort", "decode", "nms")
 _PHASE_MARKS = (
     "  // 2. radix select", "  const int need = K - grp.reduce", "  int amax = INT_MAX;",
@@ -78,9 +101,40 @@ def _patched(name: str, source: str, patches) -> None:
 
 
 def _restore() -> None:
-    _build.CSRC_DIR = SOURCE_DIR
-    _build.BUILD_DIR = os.path.join(os.path.dirname(SOURCE_DIR), "_build")
+    _build.CSRC_DIR = PACKAGE_CSRC
+    _build.BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_CSRC), "_build")
     _build._loaded.clear()
+
+
+def _wrapper(name: str):
+    """``ops/<name>.py`` of the tree the sources come from, loaded from its
+    file (it builds through this package's ``_build``, which ``_patched``
+    points at the patched copy)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(SOURCE_DIR), "ops", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_breakdown_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+def _stamps_for(source: str, designs: dict) -> tuple[str, list]:
+    """The design whose marker ``source`` holds, and its patches."""
+    with open(os.path.join(SOURCE_DIR, source)) as fh:
+        text = fh.read()
+    found = [(name, patches) for name, (marker, patches) in designs.items() if marker in text]
+    if len(found) != 1:
+        raise RuntimeError(f"{source}: no single known design ({[n for n, _ in found]})")
+    return found[0]
+
+
+def _read_phases(lib, names) -> dict:
+    buf = (ctypes.c_ulonglong * 16)()
+    if lib.phases_read(buf):
+        raise RuntimeError("could not read the phase cycles")
+    return dict(zip(names, buf))
 
 
 def detect_post_phases(device) -> dict:
@@ -189,14 +243,14 @@ def warp_variants(device) -> dict:
 
 INT8_SHAPES = ((128, 1_000_000, 512, 5), (1, 1_000_000, 512, 5), (32, 100_000, 512, 5),
                (128, 100_000, 512, 5))
-_INT8_SUM = """
+_PHASE_SUMS = """
 __device__ unsigned long long phase_cycles[16];
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-extern "C" int int8_phases_read(unsigned long long* out) {
+extern "C" int phases_read(unsigned long long* out) {
   if (cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles)) != cudaSuccess) return 1;
   static const unsigned long long zero[16] = {};
   return cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero)) != cudaSuccess;
@@ -210,7 +264,7 @@ INT8_SUMS = ("wait", "products", "filter", "fold", "tiles", "rounds", "before ti
 # clock64 stamps in a consumer of int8_partial; thread 0 also refills its
 # consumer's ring, so its "products" hold that.
 INT8_STAMPS = [
-    ("namespace {\n", _INT8_SUM + "namespace {\n"),
+    ("namespace {\n", _PHASE_SUMS + "namespace {\n"),
     ("  extern __shared__ unsigned char smem_raw[];\n",
      "  const long long k0 = clock64();\n  const unsigned long long g0 = global_ns();\n"
      "  extern __shared__ unsigned char smem_raw[];\n"),
@@ -272,22 +326,21 @@ def int8_phases(device) -> dict:
     _patched("int8_phases", "int8_topk.cu", INT8_STAMPS)
     try:
         lib = _build.load("int8_topk")
-        buf = (ctypes.c_ulonglong * 16)()
         out = {}
         for case, args in cases.items():
             it.int8_topk_codes(*args)
             torch.cuda.synchronize()
-            lib.int8_phases_read(buf)  # clears the sums
+            _read_phases(lib, INT8_SUMS)  # clears the sums
             it.int8_topk_codes(*args)
             torch.cuda.synchronize()
-            if lib.int8_phases_read(buf):
-                raise RuntimeError("could not read the phase cycles")
-            sums = dict(zip(INT8_SUMS, buf))
+            sums = _read_phases(lib, INT8_SUMS + ("",) * 4 + ("first ns", "last ns"))
+            first, last = sums.pop("first ns"), sums.pop("last ns")
+            sums.pop("")
             tiles, consumers = sums.pop("tiles"), sums.pop("consumers")
             out[case] = {p: v / (consumers if p in ("before tiles", "first tile", "consumer ns") else tiles)
                          for p, v in sums.items()}
             out[case]["tiles"] = tiles
-            out[case]["grid ns"] = buf[15] - (~buf[14] & (2**64 - 1))
+            out[case]["grid ns"] = last - (~first & (2**64 - 1))
         return out
     finally:
         _restore()
@@ -327,16 +380,301 @@ def int8_variants(device) -> dict:
             for name, by_case in times.items()}
 
 
+def _sum_stamps(values, guard: str) -> str:
+    """The lines that add ``values`` (C expressions) to ``phase_cycles``
+    when ``guard`` holds."""
+    adds = "".join(f"    atomicAdd(&phase_cycles[{q}], (unsigned long long)({v}));\n"
+                   for q, v in enumerate(values))
+    return f"  if ({guard}) {{\n{adds}  }}\n"
+
+
+# chi2_nn: thread 0 of each block sums its cycles per phase. The dense
+# design's chi2_partial: staging a chunk (global loads to shared memory and the
+# barrier) against its term loop (and the barrier after it), and the
+# epilogue (distances, the block's minima).
+CHI2_SUMS = ("staging", "terms", "epilogue", "blocks")
+CHI2_DESIGNS = {
+    "dense": ("constexpr int TB = 32;   // queries of a block", [
+        ("namespace {\n", _PHASE_SUMS + "namespace {\n"),
+        ("  for (int f0 = 0; f0 < F; f0 += KF) {\n    const int f = f0 + lane;\n",
+         "  long long c_stage = 0, c_terms = 0;\n"
+         "  for (int f0 = 0; f0 < F; f0 += KF) {\n    const long long s0 = clock64();\n"
+         "    const int f = f0 + lane;\n"),
+        ("    __syncthreads();\n    float part[4][4];\n",
+         "    __syncthreads();\n    const long long s1 = clock64();\n    c_stage += s1 - s0;\n"
+         "    float part[4][4];\n"),
+        ("acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);\n    __syncthreads();\n  }\n",
+         "acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);\n    __syncthreads();\n"
+         "    c_terms += clock64() - s1;\n  }\n  const long long e0 = clock64();\n"),
+        ("    }\n  }\n}\n\n__global__ void chi2_merge(",
+         "    }\n  }\n" + _sum_stamps(("c_stage", "c_terms", "clock64() - e0", "1"), "t == 0")
+         + "}\n\n__global__ void chi2_merge("),
+    ]),
+    # The filter design's chi2_filter: waiting for a staged chunk (the cp.async ring's
+    # wait, the barrier, issuing the chunk two ahead) against the loop over
+    # the query bits, and the epilogue (P, the tiles' bounds).
+    "filter": ("- chi2_filter + chi2_rescore: the nearest row.", [
+        ("namespace {\n", _PHASE_SUMS + "namespace {\n"),
+        ("  Ring<false> ring(reinterpret_cast<Stage*>(smem), a, n0, b0);\n",
+         "  Ring<false> ring(reinterpret_cast<Stage*>(smem), a, n0, b0);\n"
+         "  long long c_stage = 0, c_terms = 0;\n"),
+        ("    const Stage& s = ring.ready(c);\n#pragma unroll\n    for (int i = 0; i < QPW; ++i) {\n"
+         "      const int b = warp + WARPS * i;  // warp-uniform: the loop below does not diverge\n",
+         "    const long long s0 = clock64();\n    const Stage& s = ring.ready(c);\n"
+         "    const long long s1 = clock64();\n    c_stage += s1 - s0;\n"
+         "#pragma unroll\n    for (int i = 0; i < QPW; ++i) {\n"
+         "      const int b = warp + WARPS * i;  // warp-uniform: the loop below does not diverge\n"),
+        ("      for (int j = 0; j < RPT; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[j]);\n    }\n  }\n",
+         "      for (int j = 0; j < RPT; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[j]);\n    }\n"
+         "    c_terms += clock64() - s1;\n  }\n  const long long e0 = clock64();\n"),
+        ("      a.tile_hi[(size_t)b * tiles + blockIdx.x] = hi;\n    }\n  }\n}\n",
+         "      a.tile_hi[(size_t)b * tiles + blockIdx.x] = hi;\n    }\n  }\n"
+         + _sum_stamps(("c_stage", "c_terms", "clock64() - e0", "1"), "threadIdx.x == 0") + "}\n"),
+    ]),
+}
+# lbph_hist: thread 0 of each block. A block per (cell, image):
+# zeroing the histogram (and copying the plan), the codes and their
+# atomics, the write-out.
+LBPH_SUMS = {"cell blocks": ("zeroing", "codes + atomics", "write-out", "blocks"),
+             "band blocks": ("zeroing", "staging", "codes + atomics", "last barrier", "write-out",
+                             "blocks")}
+LBPH_DESIGNS = {
+    "cell blocks": ("One block per (cell, image).", [
+        ("namespace {\n", _PHASE_SUMS + "namespace {\n"),
+        ("  extern __shared__ int hist[];\n",
+         "  const long long k0 = clock64();\n  extern __shared__ int hist[];\n"),
+        ("  __syncthreads();\n  const int pixels = a.cell_h * a.cell_w;\n",
+         "  __syncthreads();\n  const long long k1 = clock64();\n"
+         "  const int pixels = a.cell_h * a.cell_w;\n"),
+        ("  __syncthreads();\n  for (int b = threadIdx.x; b < bins; b += THREADS) {\n    // the float",
+         "  __syncthreads();\n  const long long k2 = clock64();\n"
+         "  for (int b = threadIdx.x; b < bins; b += THREADS) {\n    // the float"),
+        ("    out[b] = __fmul_rn(count, a.inv_cell);\n  }\n}\n",
+         "    out[b] = __fmul_rn(count, a.inv_cell);\n  }\n"
+         + _sum_stamps(("k1 - k0", "k2 - k1", "clock64() - k2", "1"), "threadIdx.x == 0") + "}\n"),
+    ]),
+    # A block per band of cells: zeroing the band's histograms,
+    # staging its pixel rows (and the barrier), the codes and their atomics,
+    # the wait at the last barrier, the write-out.
+    "band blocks": ("A block per band:", [
+        ("namespace {\n", _PHASE_SUMS + "namespace {\n"),
+        ("  int* hist = smem;\n",
+         "  const long long k0 = clock64();\n  long long c_zero = 0, c_stage = 0, c_codes = 0, k1 = 0, k2 = 0;\n"
+         "  int* hist = smem;\n"),
+        ("    __syncthreads();  // the zeroing is done, the previous slab's taps read\n",
+         "    __syncthreads();  // the zeroing is done, the previous slab's taps read\n"
+         "    k1 = clock64();\n    if (y0 == 0) c_zero = k1 - k0;\n"),
+        ("    __syncthreads();\n    for (int j = lane; j < width; j += 32) {\n",
+         "    __syncthreads();\n    k2 = clock64();\n    c_stage += k2 - k1;\n"
+         "    for (int j = lane; j < width; j += 32) {\n"),
+        ("        else atomicAdd(&out[bin0 + code], 1.0f);\n      }\n    }\n  }\n  __syncthreads();\n",
+         "        else atomicAdd(&out[bin0 + code], 1.0f);\n      }\n    }\n    c_codes += clock64() - k2;\n"
+         "  }\n  const long long k3 = clock64();\n  __syncthreads();\n  const long long k4 = clock64();\n"),
+        ("      out[k] = __fmul_rn(v, a.inv_cell);\n    }\n  }\n}\n",
+         "      out[k] = __fmul_rn(v, a.inv_cell);\n    }\n  }\n"
+         + _sum_stamps(("c_zero", "c_stage", "c_codes", "k4 - k3", "clock64() - k4", "1"),
+                       "threadIdx.x == 0") + "}\n"),
+    ]),
+}
+CHI2_PHASE_SHAPES = ((128, 75_000, 16_384), (1, 75_000, 16_384))
+LBPH_PHASE_BATCHES = (128, 4096)
+
+
+def _lbph_gallery(device, rows: int):
+    """chip_smoke.py's LBPH histograms: ``rows`` faces (identities of 10
+    samples) through this checkout's ``lbph_hist``."""
+    from facerecognition_tpu_torch.ops.lbph_hist import lbph_hist
+    from facerecognition_tpu_torch.tools.lbph_data import lbph_faces
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    faces = lbph_faces(gen, rows // 10, 10, device)
+    return torch.cat([lbph_hist(faces[i : i + 4096]) for i in range(0, rows, 4096)])
+
+
+def _events_ms(fn, calls: int = 3) -> float:
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def chi2_phases(device) -> dict:
+    """Cycles of thread 0 of each block per phase of ``chi2_nn`` (the
+    design the sources hold), summed over the grid and divided by the
+    blocks, with the call's ms (CUDA events) beside them, at
+    ``CHI2_PHASE_SHAPES`` on chip_smoke.py's histograms."""
+    design, patches = _stamps_for("chi2_nn.cu", CHI2_DESIGNS)
+    gallery = _lbph_gallery(device, max(n for _, n, _ in CHI2_PHASE_SHAPES))
+    _patched("chi2_phases", "chi2_nn.cu", patches)
+    try:
+        cn = _wrapper("chi2_nn")
+        lib = _build.load("chi2_nn")
+        out = {"design": design}
+        # the filter design keeps the gallery's stats beside it (LBPHModel)
+        extra = {} if design == "dense" else {"gallery_stats": cn.chi2_row_stats(gallery)}
+        for b, n, f in CHI2_PHASE_SHAPES:
+            q, g = gallery[7 : 7 + b].clone(), gallery[:n]
+            call = lambda: cn.chi2_nn(q, g, **extra)  # noqa: E731
+            ms = _events_ms(call)
+            _read_phases(lib, CHI2_SUMS)  # clears the sums
+            call()
+            torch.cuda.synchronize()
+            sums = _read_phases(lib, CHI2_SUMS)
+            blocks = sums.pop("blocks")
+            out[f"B={b} N={n} F={f}"] = {"ms": ms, "blocks": blocks,
+                                         **{p: v / blocks for p, v in sums.items()}}
+        return out
+    finally:
+        _restore()
+
+
+def lbph_hist_phases(device) -> dict:
+    """Cycles of thread 0 of each block per phase of ``lbph_hist`` (the
+    design the sources hold), divided by the blocks, with the device µs of
+    a call, at B = 128 and 4096, 100², r 1, 8x8 cells of 256 bins."""
+    design, patches = _stamps_for("lbph_hist.cu", LBPH_DESIGNS)
+    from facerecognition_tpu_torch.tools.lbph_data import lbph_faces
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    _patched("lbph_hist_phases", "lbph_hist.cu", patches)
+    try:
+        lh = _wrapper("lbph_hist")
+        lib = _build.load("lbph_hist")
+        out = {"design": design}
+        for b in LBPH_PHASE_BATCHES:
+            imgs = lbph_faces(gen, b, 1, device)
+            call = lambda: lh.lbph_hist(imgs)  # noqa: E731
+            us = _events_ms(call, 20) * 1e3
+            _read_phases(lib, LBPH_SUMS[design])
+            call()
+            torch.cuda.synchronize()
+            sums = _read_phases(lib, LBPH_SUMS[design])
+            blocks = sums.pop("blocks")
+            out[f"B={b}"] = {"us_events": us, "blocks": blocks, **{p: v / blocks for p, v in sums.items()}}
+        return out
+    finally:
+        _restore()
+
+
+# chi2_nn as built (the filter and the rescoring) and with one choice undone
+# each: every bin of every chunk summed exactly (no skipping: the exact pass
+# over all 32 terms of a chunk, then the merge); the exact skipping pass
+# without the filter (``return_distances``'s kernels); the filter without
+# prefetch (each chunk staged, then waited for, then summed).
+CHI2_VARIANTS = {
+    "as built": ([], False),
+    "no skipping (dense)": ([
+        ("      unsigned cur = qm | gm[0];\n", "      unsigned cur = 0xffffffffu;\n"),
+        ("          cur = qm | next;\n", "          cur = 0xffffffffu;\n"),
+    ], True),
+    "skipping without the filter": ([], True),
+    "filter without prefetch": ([
+        ("    cp_async_wait<STAGES - 2>();\n    __syncthreads();  // chunk c landed for all; chunk c - 1's buffer is free\n"
+         "    if (c + STAGES - 1 < a.C) stage(c + STAGES - 1);\n    cp_async_commit();\n",
+         "    __syncthreads();\n    if (c > 0) stage(c);\n"
+         "    cp_async_commit();\n    cp_async_wait<0>();\n    __syncthreads();\n"),
+    ], False),
+}
+CHI2_VARIANT_SHAPES = ((128, 75_000, 16_384), (1, 75_000, 16_384))
+
+
+def chi2_variants(device) -> dict:
+    """ms per call (CUDA events, the median of 3 calls) of each of
+    ``CHI2_VARIANTS`` at ``CHI2_VARIANT_SHAPES``, in turns (each variant,
+    then each again in reverse order), on chip_smoke.py's histograms; the
+    nearest rows must agree across the variants."""
+    gallery = _lbph_gallery(device, max(n for _, n, _ in CHI2_VARIANT_SHAPES))
+    times = {name: {shape: [] for shape in CHI2_VARIANT_SHAPES} for name in CHI2_VARIANTS}
+    answers = {}
+    for name in list(CHI2_VARIANTS) + list(CHI2_VARIANTS)[::-1]:
+        patches, exact = CHI2_VARIANTS[name]
+        _patched("chi2_" + name.split()[0], "chi2_nn.cu", patches)
+        try:
+            from facerecognition_tpu_torch.ops import chi2_nn as cn
+
+            stats = cn.chi2_row_stats(gallery)
+            for b, n, f in CHI2_VARIANT_SHAPES:
+                q, g = gallery[7 : 7 + b].clone(), gallery[:n]
+                gs = stats if n == gallery.shape[0] else tuple(t[:n] for t in stats)
+                call = lambda: cn.chi2_nn(q, g, exact, gs)  # noqa: E731
+                times[name][(b, n, f)].append(statistics.median(_events_ms(call, 1) for _ in range(3)))
+                idx = call()[1].cpu()
+                if not torch.equal(answers.setdefault((b, n, f), idx), idx):
+                    raise RuntimeError(f"chi2_nn variant {name!r} found other rows at {(b, n, f)}")
+        finally:
+            _restore()
+    return {name: {f"B={b} N={n} F={f}": statistics.median(v) for (b, n, f), v in by.items()}
+            for name, by in times.items()}
+
+
+# lbph_hist as built and with the plan's taps read at their offsets in
+# shared memory for every plan (the kernel with the offsets of (r 1, P 8)
+# and (r 2, P 8) compiled in is not taken).
+LBPH_VARIANTS = {
+    "as built": [],
+    "generic taps": [("  bool statics = a.neighbors == 8 && (a.radius == 1 || a.radius == 2);\n",
+                      "  bool statics = false;\n")],
+}
+# (B, radius, neighbours), 100², 8x8 cells; B = 4096 is LBPHModel.features' chunk
+LBPH_VARIANT_CASES = ((128, 1, 8), (4096, 1, 8), (128, 2, 8))
+LBPH_VARIANT_ROUNDS = 3
+
+
+def lbph_variants(device) -> dict:
+    """Device µs per call (profiler) of each of ``LBPH_VARIANTS`` at
+    ``LBPH_VARIANT_CASES`` on chip_smoke.py's faces, in turns (each variant,
+    then each again in reverse order, ``LBPH_VARIANT_ROUNDS`` times): every
+    window's value, so the spread shows, and their median; the histograms
+    must be equal across the variants."""
+    from facerecognition_tpu_torch.tools.lbph_data import lbph_faces
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    imgs = {b: lbph_faces(gen, b, 1, device) for b in {b for b, _, _ in LBPH_VARIANT_CASES}}
+    times = {name: {case: [] for case in LBPH_VARIANT_CASES} for name in LBPH_VARIANTS}
+    answers = {}
+    order = list(LBPH_VARIANTS) + list(LBPH_VARIANTS)[::-1]
+    for name in order * LBPH_VARIANT_ROUNDS:
+        _patched("lbph_" + name.replace(" ", "_"), "lbph_hist.cu", LBPH_VARIANTS[name])
+        try:
+            lh = _wrapper("lbph_hist")
+            for case in LBPH_VARIANT_CASES:
+                b, r, p = case
+                call = lambda: lh.lbph_hist(imgs[b], r, p)  # noqa: E731
+                out = call()
+                if not torch.equal(answers.setdefault(case, out), out):
+                    raise RuntimeError(f"lbph_hist variant {name!r} differs at {case}")
+                times[name][case].append(_device_us(call, ("lbph_hist",)))
+        finally:
+            _restore()
+    return {name: {f"B={b} r={r} P={p}": {"median_us": statistics.median(v), "windows_us": v}
+                   for (b, r, p), v in by_case.items()}
+            for name, by_case in times.items()}
+
+
 SECTIONS = {
     "detect_post": ("detect_post cycles per phase", detect_post_phases),
     "warp_sample": ("warp_sample device us", warp_variants),
     "int8_phases": ("int8_topk cycles per tile", int8_phases),
     "int8_variants": ("int8_topk device us", int8_variants),
+    "chi2_phases": ("chi2_nn cycles per block", chi2_phases),
+    "lbph_hist_phases": ("lbph_hist cycles per block", lbph_hist_phases),
+    "chi2_variants": ("chi2_nn ms", chi2_variants),
+    "lbph_variants": ("lbph_hist device us", lbph_variants),
 }
 
 
 def main(argv) -> None:
-    """Every section, or those named on the command line."""
+    """Every section, or those named on the command line; ``--tree DIR``
+    first takes the sources and wrappers of the checkout at DIR."""
+    global SOURCE_DIR
+    if argv[:1] == ["--tree"]:
+        SOURCE_DIR = os.path.join(os.path.abspath(argv[1]), "facerecognition_tpu_torch", "csrc")
+        argv = argv[2:]
     unknown = set(argv) - set(SECTIONS)
     if unknown:
         raise SystemExit(f"kernel_breakdown: no section {sorted(unknown)}; sections: {list(SECTIONS)}")

@@ -2,8 +2,13 @@
 
 NaN ordering in the top-k, the streaming kernel's row cap, ``auto`` with
 k > 32, the host resize of ``MicroBatcher``, the detector's input size
-without weights, and ``Gallery.add``'s normalisation.
+without weights, ``Gallery.add``'s normalisation, and the detector's
+``backend`` parameter, its warning for an uncalibrated checkpoint and
+``build_detector_net``'s default arch.
 """
+
+import os
+import warnings
 
 import cv2
 import jax
@@ -13,14 +18,17 @@ import pytest
 import torch
 
 from facerecognition_tpu.inference.engine import Gallery as JGallery
+from facerecognition_tpu.models.detector_net import build_detector_net as j_build_detector_net
 from facerecognition_tpu.ops.matcher import cosine_topk as j_cosine_topk
 from facerecognition_tpu.ops.pallas_topk import pallas_cosine_topk
+from facerecognition_tpu.preprocessing.face_detector import FaceDetector as JFaceDetector
 from facerecognition_tpu_torch.apps.serving import MicroBatcher
 from facerecognition_tpu_torch.inference.engine import Gallery
+from facerecognition_tpu_torch.models.detector_net import build_detector_net
 from facerecognition_tpu_torch.ops import matcher
 from facerecognition_tpu_torch.ops import stream_topk as st
 from facerecognition_tpu_torch.ops.image import bilinear_resize_u8
-from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+from facerecognition_tpu_torch.preprocessing.face_detector import ASSETS_DIR, FaceDetector
 
 
 def T(a):
@@ -172,3 +180,38 @@ def test_gallery_add_normalises_as_jax(rng):
         g.add_many(["tiny"], small[None] * 1e-3)
     np.testing.assert_array_equal(pg.matrix.numpy(), np.asarray(jg.matrix))
     assert pg.names == jg.names
+
+
+SYNTHETIC = os.path.join(ASSETS_DIR, "detector_synthetic_128.msgpack")  # no calibration
+CALIBRATED = os.path.join(ASSETS_DIR, "detector_v2_128.msgpack")
+
+
+def test_detector_takes_the_blazeface_backend_first():
+    """``backend`` is the first parameter, as in JAX: ``"blazeface"`` builds
+    and is kept, anything else raises ``ValueError`` in both packages."""
+    det = FaceDetector(backend="blazeface", device="cpu")
+    assert det.backend == "blazeface"
+    assert FaceDetector("blazeface", 0.5, device="cpu").confidence_threshold == 0.5
+    for make in (FaceDetector, JFaceDetector):
+        with pytest.raises(ValueError, match="mtcnn"):
+            make("mtcnn", device="cpu") if make is FaceDetector else make("mtcnn")
+
+
+@pytest.mark.parametrize("make", [FaceDetector, JFaceDetector], ids=["port", "jax"])
+def test_uncalibrated_checkpoint_warns(make):
+    """A checkpoint without a ``calibration`` key warns with JAX's text; a
+    calibrated one does not."""
+    kw = {"device": "cpu"} if make is FaceDetector else {}
+    with pytest.warns(UserWarning, match="no 'calibration' key"):
+        det = make(weights=SYNTHETIC, **kw)
+    assert det._calibration is None
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        det = make(weights=CALIBRATED, **kw)
+    assert det._calibration is not None
+
+
+def test_build_detector_net_defaults_to_blaze():
+    """Without an argument both packages build a BlazeFaceNet."""
+    assert type(build_detector_net()) is type(build_detector_net("blaze"))
+    assert type(build_detector_net()).__name__ == type(j_build_detector_net()).__name__ == "BlazeFaceNet"
