@@ -90,7 +90,17 @@ Phases, each printing its wall seconds:
     The warp phase also checks ``embedder_input`` at 160² (align and the
     160² crowd window).
 
-Phases 7-13 are the paths: every kernel counter is set to 0 just before
+14. enrol: the enrolment and evaluation path (``enrol_phase``): the
+    committed fixture files decoded (PIL's pixels; nvJPEG within its
+    bound), an LBPH ``DatabaseBuilder`` job over 1,024 x 4 generated PNG
+    faces (64 identities also on the CPU), ArcFace and FaceNet gallery
+    jobs over the fixture folder with the shipped detector, the engine
+    loaded from the ArcFace gallery (``stream``) recognizing every fixture
+    path, ``evaluate_recognition_engine`` and Grad-CAM / activation-CAM,
+    each against the CPU port; decode, training, threshold search and job
+    times.
+
+Phases 7-14 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -221,6 +231,15 @@ CHI2_CHECK_ROWS = 4_096  # rows the kernel-order emulation covers
 CHI2_OVERFLOW_ROW, CHI2_OVERFLOW_COPIES = 5_000, 300  # a block of equal rows
 # A model, not a reading: MUFU.RCP at 16 a cycle per SM (H100: 132 SMs, 1.98 GHz).
 MUFU_PER_S = 132 * 16 * 1.98e9
+# The enrolment path: the committed fixture folder (16 identities x baseline,
+# progressive and gray JPEG and RGB PNG, 128²; make_torch_fixtures.py), and
+# an LBPH job over 1,024 identities x 4 gray 100² PNG faces, of which the
+# first 64 identities are also trained on the CPU.
+FIXTURES = "facerecognition_tpu_torch/fixtures"
+ENROL_LBPH_IDENTITIES, ENROL_LBPH_SAMPLES, ENROL_LBPH_SUBSET = 1_024, 4, 64
+# nvJPEG against libjpeg (PIL), the same files: the IDCT alone differs (the
+# decoder upsamples and converts nvJPEG's planes as libjpeg does).
+NVJPEG_MAX_ABS = 3  # measured on the fixtures: at most 3 levels, mean 0.019
 
 
 class CheckFailed(RuntimeError):
@@ -1630,6 +1649,228 @@ def blaze_phase(card: str) -> dict:
     return launches
 
 
+def enrol_phase(card: str) -> dict:
+    """The enrolment and evaluation path on the card against the CPU port:
+
+    1. decode: every fixture file through ``load_image`` (PNG: the stored PIL
+       digests; JPEG: the digests with libjpeg, within ``NVJPEG_MAX_ABS`` of
+       the stored PIL arrays with nvJPEG), ``decode_batch`` files/s;
+    2. an LBPH ``DatabaseBuilder`` job over 1,024 x 4 generated PNG faces
+       (its two files load); the first 64 identities trained on the card and
+       on the CPU: histograms, labels, label map, sweep rows and threshold
+       equal; training and threshold search timed on the card;
+    3. ArcFace and FaceNet ``DatabaseBuilder`` jobs over the fixture folder
+       with the shipped detector: the same identities, each mean embedding's
+       cosine with the CPU's above 0.999;
+    4. ``create_engine_from_embeddings_dir`` on the ArcFace gallery with the
+       ``stream`` matcher, ``recognize(path)`` on every fixture: identities
+       equal, confidences within 1e-4;
+    5. ``evaluate_recognition_engine`` (``measure_speed=True``) on the
+       engines' aligned fixture faces: metrics, top-k and CMC equal, AUC and
+       EER within 1e-3 (pair scores close to each other may trade places);
+    6. ``ExplainabilityEngine`` and ``FaceNetExplainabilityEngine`` on a
+       fixture file: CAMs within 1e-3, embeddings' cosine above 0.999.
+
+    ``lbph_hist``, ``chi2_nn``, ``detect_post`` and ``stream_topk`` must
+    launch."""
+    import hashlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.data import native_decode
+    from facerecognition_tpu_torch.data.datasets import FolderDataset
+    from facerecognition_tpu_torch.inference import extract_embeddings as ee
+    from facerecognition_tpu_torch.inference.database_builder import DatabaseBuilder
+    from facerecognition_tpu_torch.inference.engine import create_engine_from_embeddings_dir
+    from facerecognition_tpu_torch.inference.evaluate import evaluate_recognition_engine
+    from facerecognition_tpu_torch.inference.explainability import (
+        ExplainabilityEngine,
+        FaceNetExplainabilityEngine,
+    )
+    from facerecognition_tpu_torch.models.lbph import LBPHModel
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.tools.lbph_data import lbph_faces
+    from facerecognition_tpu_torch.training import train_lbph
+    from facerecognition_tpu_torch.utils.imageio import load_image, save_png
+
+    line: dict = {"card": card}
+    with open(os.path.join(FIXTURES, "faces.json")) as f:
+        files = json.load(f)["files"]
+    stored = np.load(os.path.join(FIXTURES, "faces_jpeg_pixels.npz"))
+    backend = native_decode.jpeg_backend()
+    counters = reset_counters()
+
+    # 1. decode
+    jpeg_err, jpeg_sum, jpeg_px, digests_equal = 0, 0.0, 0, 0
+    for rel, info in sorted(files.items()):
+        img = load_image(os.path.join(FIXTURES, rel))
+        check(list(img.shape) == info["shape"], f"{rel}: decoded {img.shape}, want {info['shape']}")
+        same = hashlib.sha256(img.tobytes()).hexdigest() == info["sha256"]
+        digests_equal += same
+        if rel.endswith(".png") or backend == "libjpeg":
+            check(same, f"{rel}: decoded pixels differ from PIL's ({backend})")
+        else:
+            diff = np.abs(img.astype(np.int64) - stored[rel].astype(np.int64))
+            jpeg_err, jpeg_sum, jpeg_px = max(jpeg_err, int(diff.max())), jpeg_sum + float(diff.sum()), jpeg_px + diff.size
+    check(jpeg_err <= NVJPEG_MAX_ABS, f"nvJPEG pixels {jpeg_err} levels from PIL's (bound {NVJPEG_MAX_ABS})")
+    paths = [os.path.join(FIXTURES, rel) for rel in sorted(files)]
+    _, ok = native_decode.decode_batch(paths, 128)
+    check(bool(ok.all()), "decode_batch failed on a fixture")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        native_decode.decode_batch(paths, 128)
+    line["decode"] = {"jpeg_backend": backend, "files": len(paths), "digests_equal": digests_equal,
+                      "jpeg_max_abs_vs_pil": jpeg_err, "jpeg_mean_abs_vs_pil": jpeg_sum / max(jpeg_px, 1),
+                      "decode_batch_files_per_s": 5 * len(paths) / (time.perf_counter() - t0)}
+
+    with tempfile.TemporaryDirectory(prefix="enrol-") as tmp:
+        # 2. LBPH: a DatabaseBuilder job over 1,024 x 4 PNG faces, then the subset on both devices
+        faces = lbph_faces(torch.Generator().manual_seed(SEED + 17), ENROL_LBPH_IDENTITIES,
+                           ENROL_LBPH_SAMPLES, "cpu").to(torch.uint8).numpy()
+        lbph_dir, subset_dir = os.path.join(tmp, "lbph"), os.path.join(tmp, "lbph_subset")
+        t0 = time.perf_counter()
+        for i in range(ENROL_LBPH_IDENTITIES):
+            for d in (lbph_dir, subset_dir) if i < ENROL_LBPH_SUBSET else (lbph_dir,):
+                os.makedirs(os.path.join(d, f"person{i}"))
+                for k in range(ENROL_LBPH_SAMPLES):
+                    save_png(os.path.join(d, f"person{i}", f"{k}.png"), faces[i * ENROL_LBPH_SAMPLES + k])
+        write_s = time.perf_counter() - t0
+        lbph_paths = [os.path.join(lbph_dir, f"person{i}", f"{k}.png")
+                      for i in range(ENROL_LBPH_IDENTITIES) for k in range(ENROL_LBPH_SAMPLES)]
+        t0 = time.perf_counter()
+        _, ok = native_decode.decode_batch(lbph_paths, 100)
+        png_files_per_s = len(lbph_paths) / (time.perf_counter() - t0)
+        check(bool(ok.all()), "decode_batch failed on a generated PNG")
+        builder = DatabaseBuilder(os.path.join(tmp, "out"))
+        job = builder.create_job("lbph", lbph_dir)
+        builder.start_build(job).join()
+        check(job.status == "completed", f"LBPH job {job.status}: {job.error}")
+        model = LBPHModel.load(job.output_files[0])
+        label_map = np.load(job.output_files[1], allow_pickle=True).item()
+        check(len(label_map) == ENROL_LBPH_IDENTITIES and len(model.labels) == len(lbph_paths),
+              f"LBPH job files: {len(label_map)} identities, {len(model.labels)} rows")
+        t0 = time.perf_counter()
+        images, labels, _ = train_lbph.load_faces_and_labels(lbph_dir)
+        load_s = time.perf_counter() - t0
+        timed = LBPHModel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.train(images, labels)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        thr, best, _ = train_lbph.find_optimal_threshold(timed, images, labels)
+        search_s = time.perf_counter() - t0
+        check(thr == model.threshold, f"LBPH threshold {thr} vs the job's {model.threshold}")
+        sub = {}
+        for name, dev in (("card", None), ("cpu", "cpu")):
+            res = train_lbph.train_lbph_from_directory(subset_dir, os.path.join(tmp, f"sub_{name}"),
+                                                       device=dev)
+            sub[name] = (res, np.load(res["model_path"]),
+                         np.load(res["label_map_path"], allow_pickle=True).item())
+        (rc, mc, lc), (rp, mp, lp) = sub["card"], sub["cpu"]
+        check(np.array_equal(mc["histograms"], mp["histograms"]), "LBPH subset: histograms differ")
+        check(np.array_equal(mc["labels"], mp["labels"]) and lc == lp, "LBPH subset: labels differ")
+        check(rc["sweep"] == rp["sweep"] and rc["optimal_threshold"] == rp["optimal_threshold"],
+              f"LBPH subset: sweep or threshold differ ({rc['optimal_threshold']} vs {rp['optimal_threshold']})")
+        line["lbph"] = {"identities": ENROL_LBPH_IDENTITIES, "images": len(lbph_paths),
+                        "write_png_s": write_s, "decode_batch_png_files_per_s": png_files_per_s,
+                        "job_s": job.elapsed_seconds, "load_faces_s": load_s, "train_s": train_s,
+                        "threshold_search_s": search_s, "threshold": thr, "best": best,
+                        "subset_identities": ENROL_LBPH_SUBSET,
+                        "subset_threshold": rc["optimal_threshold"]}
+
+        # 3. ArcFace and FaceNet gallery jobs over the fixture folder, card and CPU
+        folder = os.path.join(FIXTURES, "faces")
+        checkpoints = {"arcface": ee.default_arcface_checkpoint(), "facenet": ee.default_facenet_checkpoint()}
+        galleries, jobs = {}, {}
+        for model_type in ("arcface", "facenet"):
+            for name, dev in (("card", None), ("cpu", "cpu")):
+                builder = DatabaseBuilder(os.path.join(tmp, name), device=dev)
+                job = builder.create_job(model_type, folder)
+                builder.start_build(job, detector=FaceDetector(device=dev),
+                                    checkpoint_path=checkpoints[model_type]).join()
+                check(job.status == "completed", f"{model_type} job on {name}: {job.status} {job.error}")
+                galleries[model_type, name] = np.load(job.output_files[0], allow_pickle=True).item()
+                jobs[f"{model_type}_{name}_s"] = job.elapsed_seconds
+            got, ref = galleries[model_type, "card"], galleries[model_type, "cpu"]
+            check(sorted(got) == sorted(ref) and len(got) > 0,
+                  f"{model_type} gallery: {len(got)} identities on the card, {len(ref)} on the CPU")
+            worst = min(float(got[k] @ ref[k]) for k in ref)
+            check(worst > 0.999, f"{model_type} gallery: card vs CPU cosine {worst}")
+            jobs[f"{model_type}_identities"] = len(got)
+            jobs[f"{model_type}_min_cosine"] = worst
+        line["galleries"] = jobs
+
+        # 4. the engine on the built ArcFace gallery
+        engines = {name: create_engine_from_embeddings_dir(
+            checkpoints["arcface"], os.path.join(tmp, name, "arcface"),
+            detector=FaceDetector(device=dev), device=dev, match_kernel="stream")
+            for name, dev in (("card", None), ("cpu", "cpu"))}
+        conf_err, right = 0.0, 0
+        for rel in sorted(files):
+            got, ref = (engines[n].recognize(os.path.join(FIXTURES, rel)) for n in ("card", "cpu"))
+            check(got["status"] == ref["status"] and got["identity"] == ref["identity"],
+                  f"recognize {rel}: {got['identity']} on the card, {ref['identity']} on the CPU")
+            conf_err = max(conf_err, abs(got["confidence"] - ref["confidence"]))
+            right += got["identity"] == rel.split("/")[1]
+        check(conf_err <= 1e-4, f"recognize: confidences {conf_err} apart")
+        line["recognize"] = {"files": len(files), "identity_is_folder": right,
+                             "max_abs_confidence_diff": conf_err}
+
+        # 5. evaluation on each engine's aligned fixture faces
+        index = FolderDataset(folder)
+        evals = {}
+        for name, engine in engines.items():
+            faces_ = []
+            for path in index.paths:
+                img = load_image(path)
+                aligned = engine.detect_and_align(img)
+                faces_.append(aligned if aligned is not None else
+                              np.asarray(img, np.float32)[8:120, 8:120])
+            evals[name] = evaluate_recognition_engine(
+                engine, np.stack(faces_), index.labels, index.label_names,
+                measure_speed=name == "card")
+        got, ref = evals["card"], evals["cpu"]
+        for key in ("metrics", "top_1_accuracy", "top_5_accuracy", "cmc"):
+            check(got[key] == ref[key], f"evaluation {key}: {got[key]} vs CPU {ref[key]}")
+        for key in ("auc", "eer"):
+            check(abs(got["verification"][key] - ref["verification"][key]) <= 1e-3,
+                  f"evaluation {key}: {got['verification'][key]} vs CPU {ref['verification'][key]}")
+        line["evaluate"] = {"metrics": got["metrics"], "top_1_accuracy": got["top_1_accuracy"],
+                            "verification": got["verification"], "speed": got["speed"]}
+
+        # 6. explanations of one fixture file
+        path = os.path.join(FIXTURES, "faces", "id3", "3_rgb.png")
+        cams = {}
+        for kind in ("arcface", "facenet"):
+            out = {}
+            for name, dev in (("card", None), ("cpu", "cpu")):
+                detector = FaceDetector(device=dev)
+                if kind == "arcface":
+                    out[name] = ExplainabilityEngine(engines[name].embedder, detector).explain(path)
+                else:
+                    out[name] = FaceNetExplainabilityEngine(load_embedder("facenet", dev),
+                                                            detector).explain(path)
+            g, r = out["card"], out["cpu"]
+            cam_err = float(np.abs(g["cam"] - r["cam"]).max())
+            cos = float(g["embedding"] @ r["embedding"]
+                        / (np.linalg.norm(g["embedding"]) * np.linalg.norm(r["embedding"])))
+            check(cam_err <= 1e-3 and cos > 0.999, f"{kind} CAM: {cam_err} apart, cosine {cos}")
+            cams[kind] = {"cam_max_abs_diff": cam_err, "embedding_cosine": cos}
+        line["explain"] = cams
+
+    launches = {name: c.count for name, c in counters.items()}
+    for name in ("lbph_hist", "chi2_nn", "detect_post", "stream_topk"):
+        check(launches[name] > 0, f"the enrolment path launched no {name} kernel")
+    line["launches"] = launches
+    print("enrol", json.dumps(line), flush=True)
+    return launches
+
+
 def same_top_k(got, ref, tol: float, what: str) -> float:
     """Two top-k lists of (name, score): scores within ``tol``, names equal
     wherever the reference's neighbouring scores are more than ``tol``
@@ -1764,6 +2005,9 @@ def main() -> int:
         facenet_crowd, _, _ = serving_phase(smi, CROWD_FACES, model_type="facenet")
         facenet_staged = staged_phase(smi, "facenet", ("stream",))
 
+    with phase("enrol"):
+        enrol = enrol_phase(smi)
+
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
         {
@@ -1893,8 +2137,8 @@ def main() -> int:
                "alternating_wall_ms": walls[kind]["ms"], "alternating_rounds_ms": walls[kind]["rounds_ms"]}
         for kind, profile in (("int8", int8_profile), ("stream", stream_profile))}), flush=True)
     print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
-    print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}",
-          flush=True)
+    print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}; "
+          f"enrolment path: {json.dumps(enrol)}", flush=True)
     print("facenet", json.dumps({
         "launches": {"one_face": facenet, "crowd": facenet_crowd, "staged": facenet_staged},
         "fused_profile": {key: facenet_profile[key] for key in (

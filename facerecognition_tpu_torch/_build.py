@@ -1,11 +1,13 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 compiled for ``sm_90a`` at first use into ``_build/`` (git-ignored) under a
 name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and
-the flags. Nothing here includes
+the flags. The host image decoder ``csrc/decode.cpp`` is built alike with
+the host C++ compiler (``build_host``), its JPEG backend chosen from what
+the machine has (``jpeg_config``). Nothing here includes
 PyTorch's headers, so a build takes seconds, not minutes. A missing
-``nvcc`` or a failed build raises with the compiler's output. The build
+compiler or a failed build raises with the compiler's output. The build
 writes to a temporary name and renames it into place, so there is no lock
 file for a concurrent or interrupted build to wait on.
 """
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 600
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_LIBS = ("-lz", "-lpthread")
 
 
 @dataclasses.dataclass
@@ -61,19 +65,28 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def cuda_home() -> str:
+    """The CUDA toolkit's root: ``$CUDA_HOME``, else nvcc's, else
+    ``/usr/local/cuda``."""
+    if os.environ.get("CUDA_HOME"):
+        return os.environ["CUDA_HOME"]
+    nvcc = shutil.which("nvcc")
+    return os.path.dirname(os.path.dirname(nvcc)) if nvcc else "/usr/local/cuda"
+
+
 def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
-def _target(name: str) -> str:
+def _target(name: str, source: str = "", flags: Sequence[str] = NVCC_FLAGS) -> str:
     """The library's path, keyed by the source, the shared headers of
     ``csrc/`` and the flags."""
     digest = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for path in [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+    for path in [source or source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -124,6 +137,76 @@ def build(names: Sequence[str]) -> list[Built]:
                 seconds if n in started else 0.0, logs.get(n, ""),
             )
         return [_loaded[n] for n in names]
+
+
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) on PATH; the image decoder is "
+                           "built at first use")
+    return cxx
+
+
+def _has_header(cxx: str, header: str, extra: Sequence[str] = ()) -> bool:
+    probe = subprocess.run(
+        [cxx, "-E", "-x", "c++", *extra, "-"], input=f"#include <cstdio>\n#include <{header}>\n",
+        capture_output=True, text=True, timeout=60,
+    )
+    return probe.returncode == 0
+
+
+def _has_library(cxx: str, lib: str) -> bool:
+    found = subprocess.run(
+        [cxx, f"-print-file-name=lib{lib}.so"], capture_output=True, text=True, timeout=60
+    ).stdout.strip()
+    return os.path.isabs(found) and os.path.exists(found)
+
+
+def jpeg_config(cxx: str) -> tuple[str, tuple[str, ...]]:
+    """How the decoder reads JPEG here, and its flags: ``libjpeg`` where its
+    header and library are found; else ``nvjpeg``, the CUDA toolkit's
+    (decoded on the card); else ``none``, and decoding a JPEG raises."""
+    if _has_header(cxx, "jpeglib.h") and _has_library(cxx, "jpeg"):
+        return "libjpeg", ("-DFRT_JPEG_LIBJPEG", "-ljpeg")
+    home = cuda_home()
+    inc, lib = os.path.join(home, "include"), os.path.join(home, "lib64")
+    if os.path.exists(os.path.join(inc, "nvjpeg.h")) and os.path.exists(os.path.join(lib, "libnvjpeg.so")):
+        return "nvjpeg", ("-DFRT_JPEG_NVJPEG", f"-I{inc}", f"-L{lib}", f"-Wl,-rpath,{lib}",
+                          "-lnvjpeg", "-lcudart_static", "-ldl", "-lrt")
+    return "none", ()
+
+
+def build_host(name: str = "decode") -> Built:
+    """Build (once) and load ``csrc/<name>.cpp`` with the host C++ compiler."""
+    key = f"host:{name}"
+    with _lock:
+        if key in _loaded:
+            return _loaded[key]
+        cxx = find_cxx()
+        source = os.path.join(CSRC_DIR, f"{name}.cpp")
+        _, jpeg_flags = jpeg_config(cxx)
+        flags = (*HOST_CXX_FLAGS, *jpeg_flags, *HOST_LIBS)
+        target = _target(name, source, flags)
+        seconds, log = 0.0, ""
+        if not os.path.exists(target):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [cxx, *HOST_CXX_FLAGS, "-o", tmp, source, *jpeg_flags, *HOST_LIBS],
+                    capture_output=True, text=True, timeout=NVCC_TIMEOUT_S,
+                )
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed on {source} (exit {proc.returncode}):\n{log}")
+                os.replace(tmp, target)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            seconds = time.perf_counter() - t0
+        _loaded[key] = Built(name, target, ctypes.CDLL(target), seconds, log)
+        return _loaded[key]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -43,6 +43,8 @@ from facerecognition_tpu_torch.ops.warp_sample import detector_input, embedder_i
 from facerecognition_tpu_torch.utils.imageio import load_image
 
 MATCH_KERNELS = ("auto", "dense", "stream", "int8")
+#: The staged API's message for an input it cannot embed (the JAX engine's).
+UNREADABLE = "Cannot extract embedding (no face or invalid image)"
 #: Embedder loaders by ``model_type``.
 LOADERS = {"arcface": load_arcface_model, "facenet": load_facenet_model}
 #: Crowd-path crop window per slot, as the JAX engine's ``_CROWD_WINDOW``:
@@ -576,12 +578,10 @@ class RecognitionEngine:
             "embedding": None,
             "status": "success",
         }
-        try:
-            load_image(img_input)
-        except OSError as err:
-            result.update(status="error", message=str(err))
-            return result
         embedding, face_found = self._extract_with_info(img_input)
+        if embedding is None:
+            result.update(status="error", message=UNREADABLE)
+            return result
         result["embedding"] = embedding
         result["face_found"] = face_found
         if not face_found:
@@ -603,8 +603,8 @@ class RecognitionEngine:
             raise ValueError("recognize_all needs a detector")
         try:
             img = load_image(img_input)
-        except OSError as err:
-            return {"status": "error", "message": str(err), "faces": []}
+        except OSError:
+            return {"status": "error", "message": "invalid image", "faces": []}
         dets = self.detector.detect_all(img)[:max_faces]
         if not dets:
             return {"status": "success", "faces": []}
@@ -643,12 +643,11 @@ class RecognitionEngine:
                 "top_k": [],
                 "embedding": None,
                 "status": "error",
-                "message": "Cannot extract embedding (no face or invalid image)",
+                "message": UNREADABLE,
             })
             try:
                 img = load_image(inp)
-            except OSError as err:
-                results[i]["message"] = str(err)
+            except OSError:
                 continue
             if self.detector is not None:
                 aligned = self.detect_and_align(img)
@@ -703,11 +702,12 @@ def create_engine_from_embeddings_dir(
     threshold: float = 0.5,
     detector: Any = "default",
     device: DeviceLike = None,
+    match_kernel: str = "auto",
 ) -> RecognitionEngine:
     """A ``model_type`` engine whose gallery is ``face_db.npy``, else the
     first ``.npy`` dict that loads, in ``embeddings_dir``.
     ``detector="default"`` builds the shipped ``FaceDetector``; pass None to
-    embed whole images."""
+    embed whole images. ``match_kernel`` as ``RecognitionEngine``'s."""
     device = resolve_device(device)
     if detector == "default":
         from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
@@ -715,7 +715,7 @@ def create_engine_from_embeddings_dir(
         detector = FaceDetector(device=device)
     engine = RecognitionEngine(
         model_type=model_type, checkpoint_path=model_path, threshold=threshold,
-        detector=detector, device=device,
+        detector=detector, device=device, match_kernel=match_kernel,
     )
     candidates = [os.path.join(embeddings_dir, "face_db.npy")] + [
         os.path.join(embeddings_dir, f) for f in sorted(os.listdir(embeddings_dir)) if f.endswith(".npy")

@@ -1,13 +1,17 @@
 """Embedders: checkpoint loading, the image → embedding forward, batched
-extraction on image arrays, prototypes and the exact search index.
+extraction, prototypes, the exact search index and gallery building.
 
 Counterpart of ``facerecognition_tpu/inference/extract_embeddings.py``
 (``EmbedderConfig``, ``Embedder`` for ArcFace and FaceNet, the checkpoint
-resolvers and loaders, ``extract_embedding_single``/``extract_embeddings_batch``,
-``compute_prototypes_from_arrays``, ``SearchIndex``). What reads image files
-(CSV extraction, ``full_pipeline``, ``build_db``, the CLI) and the t-SNE plot
-wait (ROADMAP): the port reads no files, and a path is skipped as a failed
-load.
+resolvers and loaders, ``extract_embedding_single``/``extract_embeddings_batch``
+on arrays, paths or bytes, ``compute_prototypes_from_arrays``,
+``SearchIndex``, ``extract_embeddings_from_csv``, ``build_db``,
+``full_pipeline``, ``visualize_tsne`` and the ``main`` CLI). An input that
+cannot be read is skipped. sklearn and matplotlib are imported by
+``visualize_tsne`` only.
+
+    python -m facerecognition_tpu_torch.inference.extract_embeddings --mode db \
+        --data-dir <person folders> --output databases/arcface
 """
 
 from __future__ import annotations
@@ -210,9 +214,8 @@ def load_facenet_model(
 def extract_embedding_single(
     img_input, embedder: Embedder, preprocess: Optional[Callable] = None
 ) -> Optional[np.ndarray]:
-    """One L2-normalized embedding of an image array, or None when the
-    input cannot be read (a path: the port reads no files) or ``preprocess``
-    returns None."""
+    """One L2-normalized embedding of an image (array, path or bytes), or
+    None when the input cannot be read or ``preprocess`` returns None."""
     try:
         img = load_image(img_input)
     except OSError:
@@ -227,20 +230,21 @@ def extract_embedding_single(
 def extract_embeddings_batch(
     img_inputs: Sequence, embedder: Embedder, preprocess: Optional[Callable] = None
 ) -> tuple[np.ndarray, list[int]]:
-    """Embeddings (M, D) of the inputs that load, and their indices; each
-    image not at the embedder's input size is resized first (float32, on the
-    embedder's device), as the JAX function does."""
+    """Embeddings (M, D) of the inputs that load, and their indices (an
+    input that cannot be read, or that ``preprocess`` maps to None, is
+    skipped); each image not at the embedder's input size is resized first
+    (float32, on the embedder's device), as the JAX function does."""
     images, kept = [], []
     s = embedder.config.input_size
     for i, inp in enumerate(img_inputs):
         try:
             img = load_image(inp)
+            if preprocess is not None:
+                img = preprocess(img)
         except OSError:
             continue
-        if preprocess is not None:
-            img = preprocess(img)
-            if img is None:
-                continue
+        if img is None:
+            continue
         img = np.asarray(img)
         if img.shape[0] != s or img.shape[1] != s:
             x = torch.as_tensor(img.astype(np.float32), device=embedder.device)
@@ -301,3 +305,176 @@ class SearchIndex:
 
 #: The reference's name for the index.
 build_faiss_index = SearchIndex
+
+
+def extract_embeddings_from_csv(
+    csv_path: str,
+    embedder: Embedder,
+    image_root: Optional[str] = None,
+    preprocess: Optional[Callable] = None,
+) -> tuple[np.ndarray, np.ndarray, list[str]]:
+    """(embeddings (N, D), labels (N,), label names) of the images a CSV
+    lists (``data.datasets.CSVDataset``'s three layouts); images that cannot
+    be read are skipped with their labels."""
+    from facerecognition_tpu_torch.data.datasets import CSVDataset
+
+    index = CSVDataset(csv_path, image_root)
+    embs, kept = extract_embeddings_batch(index.paths, embedder, preprocess)
+    return embs, index.labels[kept], index.label_names
+
+
+def visualize_tsne(
+    embeddings: np.ndarray,
+    labels: np.ndarray,
+    output_path: str,
+    max_classes: int = 20,
+    perplexity: float = 30.0,
+    seed: int = 0,
+) -> str:
+    """t-SNE plot of the embeddings of the ``max_classes`` most frequent
+    identities, written to ``output_path`` (host only: sklearn and
+    matplotlib)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from sklearn.manifold import TSNE
+
+    labels = np.asarray(labels)
+    classes, counts = np.unique(labels, return_counts=True)
+    top = classes[np.argsort(-counts)][:max_classes]
+    mask = np.isin(labels, top)
+    emb = np.asarray(embeddings)[mask]
+    lab = labels[mask]
+    perplexity = min(perplexity, max(len(emb) - 1, 1) / 3)
+    proj = TSNE(n_components=2, perplexity=perplexity, random_state=seed, init="pca").fit_transform(emb)
+    fig, ax = plt.subplots(figsize=(8, 8))
+    for c in top:
+        pts = proj[lab == c]
+        ax.scatter(pts[:, 0], pts[:, 1], s=8, label=str(c))
+    if len(top) <= 20:
+        ax.legend(fontsize=6, markerscale=1.5)
+    ax.set_title(f"t-SNE of {len(emb)} embeddings / {len(top)} identities")
+    d = os.path.dirname(output_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    fig.savefig(output_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return output_path
+
+
+def full_pipeline(
+    csv_path: str,
+    embedder: Embedder,
+    output_dir: str,
+    image_root: Optional[str] = None,
+    preprocess: Optional[Callable] = None,
+) -> dict:
+    """CSV → embeddings, labels, class prototypes and their ``SearchIndex``
+    in ``output_dir``, and a t-SNE plot from 10 embeddings up; returns the
+    counts and paths."""
+    os.makedirs(output_dir, exist_ok=True)
+    embs, labels, names = extract_embeddings_from_csv(csv_path, embedder, image_root, preprocess)
+    np.save(os.path.join(output_dir, "embeddings.npy"), embs)
+    np.save(os.path.join(output_dir, "labels.npy"), labels)
+    protos = compute_prototypes_from_arrays(embs, labels, len(names))
+    np.save(os.path.join(output_dir, "prototypes.npy"), protos)
+    index = SearchIndex(protos, np.arange(len(names)), device=embedder.device)
+    index.save(os.path.join(output_dir, "search_index"))
+    tsne_path = None
+    if len(embs) >= 10:
+        tsne_path = visualize_tsne(embs, labels, os.path.join(output_dir, "tsne.png"))
+    return {
+        "n_embeddings": len(embs),
+        "n_classes": len(names),
+        "embeddings_path": os.path.join(output_dir, "embeddings.npy"),
+        "prototypes_path": os.path.join(output_dir, "prototypes.npy"),
+        "index_path": os.path.join(output_dir, "search_index.npz"),
+        "tsne_path": tsne_path,
+    }
+
+
+#: File endings ``build_db`` reads in a person's folder (as the JAX function).
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+def build_db(
+    dataset_dir: str,
+    embedder: Embedder,
+    preprocess: Optional[Callable] = None,
+    output_path: Optional[str] = None,
+    progress: Optional[Callable[[int, int, str], None]] = None,
+) -> dict[str, np.ndarray]:
+    """{person: mean embedding / (||mean|| + 1e-8)} over a person-per-folder
+    directory, each person's images in one batch (unreadable ones skipped;
+    a person with none is left out). Saved as a pickled dict in
+    ``output_path`` (``.npy``) when given; ``progress(i, n, person)`` after
+    each person embedded."""
+    people = sorted(
+        d for d in os.listdir(dataset_dir) if os.path.isdir(os.path.join(dataset_dir, d))
+    )
+    db: dict[str, np.ndarray] = {}
+    for i, person in enumerate(people):
+        pdir = os.path.join(dataset_dir, person)
+        paths = [
+            os.path.join(pdir, f) for f in sorted(os.listdir(pdir)) if f.lower().endswith(IMAGE_EXTS)
+        ]
+        embs, _ = extract_embeddings_batch(paths, embedder, preprocess)
+        if len(embs) == 0:
+            continue
+        mean = embs.mean(axis=0)
+        db[person] = mean / (np.linalg.norm(mean) + 1e-8)
+        if progress is not None:
+            progress(i + 1, len(people), person)
+    if output_path:
+        d = os.path.dirname(output_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        np.save(output_path, db, allow_pickle=True)
+    return db
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """CLI: ``--mode db`` (person folders → ``face_db.npy``), ``csv``
+    (embeddings and labels) or ``full`` (``full_pipeline``)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Embedding extraction")
+    parser.add_argument("--mode", choices=["db", "csv", "full"], default="db")
+    parser.add_argument("--model", choices=["arcface", "facenet"], default="arcface")
+    parser.add_argument("--checkpoint", default=None,
+                        help="weights (default: the shipped checkpoint of --model)")
+    parser.add_argument("--data-dir", default=None, help="db mode: person folders")
+    parser.add_argument("--csv", default=None, help="csv/full modes")
+    parser.add_argument("--image-root", default=None)
+    parser.add_argument("--output", default="databases/out")
+    parser.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    args = parser.parse_args(argv)
+
+    if args.model == "arcface":
+        embedder = load_arcface_model(args.checkpoint or default_arcface_checkpoint(),
+                                      device=args.device)
+    else:
+        embedder = load_facenet_model(args.checkpoint or default_facenet_checkpoint(),
+                                      device=args.device)
+    if args.mode == "db":
+        if not args.data_dir:
+            parser.error("--data-dir required for db mode")
+        db = build_db(args.data_dir, embedder, output_path=os.path.join(args.output, "face_db.npy"))
+        print(f"built gallery: {len(db)} identities → {args.output}/face_db.npy")
+    elif args.mode == "csv":
+        if not args.csv:
+            parser.error("--csv required for csv mode")
+        embs, labels, names = extract_embeddings_from_csv(args.csv, embedder, args.image_root)
+        os.makedirs(args.output, exist_ok=True)
+        np.save(os.path.join(args.output, "embeddings.npy"), embs)
+        np.save(os.path.join(args.output, "labels.npy"), labels)
+        print(f"extracted {len(embs)} embeddings / {len(names)} classes")
+    else:
+        if not args.csv:
+            parser.error("--csv required for full mode")
+        print(full_pipeline(args.csv, embedder, args.output, args.image_root))
+
+
+if __name__ == "__main__":
+    main()

@@ -45,7 +45,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50Backbone(nn.Module):
-    """ResNet → global-average-pooled 2048-d features. (B, H, W, 3) → (B, 2048)."""
+    """ResNet → global-average-pooled 2048-d features. (B, H, W, 3) → (B, 2048);
+    with ``return_feature_map`` also the layer-4 map before pooling, NCHW
+    (B, 2048, H/32, W/32)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
@@ -66,11 +68,12 @@ class ResNet50Backbone(nn.Module):
                 self.blocks.append(name)
                 cin = width * 4
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_feature_map: bool = False):
         x = x.float().permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         # MaxPool2d pads with -inf, as the JAX model pads before its pool.
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return x.mean(dim=(2, 3))
+        pooled = x.mean(dim=(2, 3))
+        return (pooled, x) if return_feature_map else pooled

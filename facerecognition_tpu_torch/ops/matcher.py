@@ -45,8 +45,13 @@ def cosine_similarity(a, b) -> float:
     return float(np.dot(a, b) / (na * nb))
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """``x / max(||x||, eps)`` along ``dim``."""
+def l2_normalize(
+    x: torch.Tensor, dim: int = -1, eps: float = 1e-12, *, axis: Optional[int] = None
+) -> torch.Tensor:
+    """``x / max(||x||, eps)`` along ``dim`` (``axis``, the JAX function's
+    name for it, is taken as well)."""
+    if axis is not None:
+        dim = axis
     n = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
     return x / torch.clamp(n, min=eps)
 

@@ -4,14 +4,15 @@ multi-face detection on one image.
 Counterpart of ``facerecognition_tpu/preprocessing/face_detector.py``: the
 checkpoint resolvers, what ``RecognitionEngine.fused_recognize_frames``
 reads (net, anchors, Platt calibration, thresholds, input size, IoU
-threshold), and ``detect_all``/``detect``/``crop_face``/``visualize`` on an
-image array. ``detect_batch`` (paths into a DataFrame) waits (ROADMAP Queue
-1), and so do image paths: the port reads no image files.
+threshold), ``detect_all``/``detect``/``crop_face``/``visualize`` on an
+image array, path or bytes, ``detect_batch`` over paths and
+``compare_detectors``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from typing import Mapping, Optional, Sequence, Union
 
@@ -176,10 +177,10 @@ class FaceDetector:
         lms[..., 1] *= sy
         return boxes, lms, scores, valid
 
-    def detect_all(self, image: np.ndarray) -> list[dict]:
-        """All faces above the confidence threshold and minimum size, in NMS
-        order (score descending): dicts of ``bbox``, ``landmarks``,
-        ``confidence``."""
+    def detect_all(self, image) -> list[dict]:
+        """All faces of an image (array, path or encoded bytes) above the
+        confidence threshold and minimum size, in NMS order (score
+        descending): dicts of ``bbox``, ``landmarks``, ``confidence``."""
         boxes, lms, scores, valid = self._run(load_image(image))
         out = []
         for i in range(len(scores)):
@@ -196,7 +197,7 @@ class FaceDetector:
             )
         return out
 
-    def detect(self, image: np.ndarray) -> Optional[dict]:
+    def detect(self, image) -> Optional[dict]:
         """One face: the largest by box area when ``select_largest``, else
         the most confident; None when ``detect_all`` finds none."""
         faces = self.detect_all(image)
@@ -208,6 +209,30 @@ class FaceDetector:
                 reverse=True,
             )
         return faces[0]
+
+    def detect_batch(self, image_paths: Sequence[str]):
+        """``detect`` over many paths: one row per path (``image_path``,
+        ``detected`` and, for a face, ``confidence``, ``x1``..``y2``,
+        ``width``, ``height``), as a pandas DataFrame where pandas imports,
+        else as a list of dicts. An unreadable path is a row with
+        ``detected`` False."""
+        rows = []
+        for path in image_paths:
+            try:
+                det = self.detect(path)
+            except OSError:
+                det = None
+            row = {"image_path": str(path), "detected": det is not None}
+            if det is not None:
+                x1, y1, x2, y2 = det["bbox"]
+                row.update(confidence=det["confidence"], x1=x1, y1=y1, x2=x2, y2=y2,
+                           width=x2 - x1, height=y2 - y1)
+            rows.append(row)
+        try:
+            import pandas as pd
+        except ImportError:
+            return rows
+        return pd.DataFrame(rows)
 
     def crop_face(
         self,
@@ -252,3 +277,25 @@ class FaceDetector:
                 if 1 <= lx < img.shape[1] - 1 and 1 <= ly < img.shape[0] - 1:
                     img[ly - 1 : ly + 2, lx - 1 : lx + 2] = (255, 0, 0)
         return img
+
+
+def compare_detectors(image, backends: Sequence[FaceDetector], n_runs: int = 5) -> list[dict]:
+    """Latency and detection of each configured detector on one image:
+    ``backend`` ("blazeface@<input size>"), ``latency_ms`` (the mean of
+    ``n_runs`` ``detect`` calls after one warm call; each call reads its
+    result back to the host), ``detected``, ``confidence``."""
+    img = load_image(image)
+    results = []
+    for det in backends:
+        det.detect(img)  # warm: cuDNN plans, the kernel library
+        t0 = time.perf_counter()
+        for _ in range(n_runs):
+            r = det.detect(img)
+        dt = (time.perf_counter() - t0) / n_runs
+        results.append({
+            "backend": f"{det.backend}@{det.input_size}",
+            "latency_ms": dt * 1e3,
+            "detected": r is not None,
+            "confidence": r["confidence"] if r else 0.0,
+        })
+    return results

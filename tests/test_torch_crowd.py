@@ -33,6 +33,7 @@ from facerecognition_tpu_torch.ops import nms as tnms
 from facerecognition_tpu_torch.ops import warp_mxu as twarp
 from facerecognition_tpu_torch.ops import warp_sample as ws
 from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+from facerecognition_tpu_torch.utils.imageio import save_png
 
 # ``facerecognition_tpu.ops`` re-exports functions named like its modules.
 jnms = importlib.import_module("facerecognition_tpu.ops.nms")
@@ -249,15 +250,17 @@ def test_detect_all_matches_jax(detectors, size):
     )["bbox"]
 
 
-def test_detect_all_thresholds(detectors):
+def test_detect_all_thresholds(detectors, tmp_path):
     _, pdet = detectors
     frame = scene_batch(np.random.default_rng(3), 1, 128, max_faces=4)[0][0].astype(np.uint8)
     strict = FaceDetector(confidence_threshold=1.01, device="cpu")
     assert strict.detect_all(frame) == [] and strict.detect(frame) is None
     gray = pdet.detect_all(frame.mean(-1))
     assert len(gray) == 6
-    with pytest.raises(TypeError, match="image array"):
+    with pytest.raises(FileNotFoundError):
         pdet.detect_all("face.jpg")
+    path = save_png(tmp_path / "frame.png", frame)  # a real file now decodes
+    assert pdet.detect_all(path) == pdet.detect_all(frame)
 
 
 # -- the fused engine ------------------------------------------------------------

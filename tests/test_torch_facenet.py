@@ -36,6 +36,7 @@ from facerecognition_tpu_torch.inference import extract_embeddings as pee
 from facerecognition_tpu_torch.models.facenet import FaceNetModel
 from facerecognition_tpu_torch.models.inception_resnet_v1 import InceptionResnetV1
 from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+from facerecognition_tpu_torch.utils.imageio import save_png
 
 from torch_refs import TorchInceptionResnetV1
 
@@ -159,24 +160,46 @@ def embedders(variables):
     return j, p
 
 
-def test_extraction_helpers_equal_jax(embedders, rng):
+def test_extraction_helpers_equal_jax(embedders, rng, tmp_path):
     j, p = embedders
     imgs = [rng.integers(0, 256, (160, 160, 3)).astype(np.uint8),
             rng.integers(0, 256, (120, 140, 3)).astype(np.uint8)]
-    inputs = [imgs[0], "missing.jpg", imgs[1]]
+    png = save_png(tmp_path / "face.png", imgs[1])  # a real file decodes in both
+    inputs = [imgs[0], "missing.jpg", imgs[1], png]
     want, want_kept = jee.extract_embeddings_batch(inputs, j)
     got, kept = pee.extract_embeddings_batch(inputs, p)
-    assert kept == want_kept == [0, 2]
+    assert kept == want_kept == [0, 2, 3]
     np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got[2], got[1], atol=1e-6)
     np.testing.assert_allclose(pee.extract_embedding_single(imgs[1], p),
                                jee.extract_embedding_single(imgs[1], j), atol=1e-5)
+    np.testing.assert_allclose(pee.extract_embedding_single(png, p),
+                               jee.extract_embedding_single(png, j), atol=1e-5)
     assert pee.extract_embedding_single("missing.jpg", p) is None
+    assert jee.extract_embedding_single("missing.jpg", j) is None
     assert pee.extract_embedding_single(imgs[0], p, preprocess=lambda im: None) is None
     labels = np.array([2, 0, 2, 0, 3])
     embs = rng.normal(size=(5, 8)).astype(np.float32)
     for n in (None, 6):
         np.testing.assert_allclose(pee.compute_prototypes_from_arrays(embs, labels, n),
                                    jee.compute_prototypes_from_arrays(embs, labels, n), atol=1e-6)
+
+
+def test_facenet_activation_cam_equals_jax(embedders, rng):
+    """FaceNetExplainabilityEngine: activation-CAM of block8 within 1e-3
+    (CAMs in [0, 1]), embeddings within 1e-4, as the JAX engine."""
+    from facerecognition_tpu.inference import explainability as jx
+    from facerecognition_tpu_torch.inference import explainability as px
+
+    j, p = embedders
+    img = rng.integers(0, 256, (160, 160, 3), dtype=np.uint8)
+    got = px.FaceNetExplainabilityEngine(p).explain(img)
+    want = jx.FaceNetExplainabilityEngine(j).explain(img)
+    assert got["cam"].shape == (160, 160) and got["embedding"].shape == (512,)
+    assert 0.0 <= got["cam"].min() and got["cam"].max() <= 1.0
+    np.testing.assert_allclose(got["cam"], want["cam"], atol=1e-3)
+    np.testing.assert_allclose(got["embedding"], want["embedding"], atol=1e-4)
+    assert got["overlay"].shape == want["overlay"].shape == (160, 160, 3)
 
 
 def test_search_index_equals_jax(rng, tmp_path):

@@ -100,14 +100,17 @@ def test_convert_layouts():
 
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port and chip_smoke leaves jax, flax,
-    msgpack, cv2, PIL and the JAX package out of sys.modules."""
+    msgpack, cv2, PIL and the JAX package out of sys.modules, and yaml,
+    sklearn, matplotlib and pandas too (imported inside the functions that
+    need them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import facerecognition_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = ('jax', 'flax', 'msgpack', 'cv2', 'PIL', 'facerecognition_tpu')\n"
+        "bad = ('jax', 'flax', 'msgpack', 'cv2', 'PIL', 'facerecognition_tpu',\n"
+        "       'yaml', 'sklearn', 'matplotlib', 'pandas')\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n"
         "print(sorted(m.split('.')[-1] for m in sys.modules if m.startswith(p.__name__ + '.ops.')))\n"
     )

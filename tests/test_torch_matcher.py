@@ -114,3 +114,14 @@ def test_auto_dispatch_rule(rng, monkeypatch):
         matcher.auto_cosine_topk(q, g, 3, kernel="stream", n_valid=10)
     with pytest.raises(ValueError, match="unknown kernel"):
         matcher.auto_cosine_topk(q, g, 3, kernel="pallas")
+
+
+def test_l2_normalize_takes_jax_axis_keyword():
+    """Code ported from JAX passes ``axis=``; the port takes it as ``dim``."""
+    x = np.random.default_rng(4).normal(size=(4, 6, 5)).astype(np.float32)
+    x[1, 2] = 0.0
+    for axis in (0, 1, -1):
+        got = matcher.l2_normalize(T(x), axis=axis).numpy()
+        np.testing.assert_array_equal(got, matcher.l2_normalize(T(x), dim=axis).numpy())
+        np.testing.assert_allclose(got, np.asarray(j_l2_normalize(jnp.asarray(x), axis=axis)),
+                                   rtol=0, atol=1e-6)

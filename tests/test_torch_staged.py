@@ -37,7 +37,7 @@ from facerecognition_tpu_torch.inference.extract_embeddings import (
 from facerecognition_tpu_torch.ops import image as timage
 from facerecognition_tpu_torch.ops import matcher as tm
 from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
-from facerecognition_tpu_torch.utils.imageio import ImageFileNotRead, load_image, to_uint8
+from facerecognition_tpu_torch.utils.imageio import load_image, save_png, to_uint8
 
 # ``facerecognition_tpu.ops`` re-exports functions named like its modules.
 jimage = importlib.import_module("facerecognition_tpu.ops.image")
@@ -239,7 +239,7 @@ def test_gather_bilinear_edge_and_gray(smooth_image):
         np.asarray(jimage.rgb_to_grayscale(jnp.asarray(smooth_image))), rtol=0, atol=1e-4)
 
 
-def test_load_image_matches_jax(rng):
+def test_load_image_matches_jax(rng, tmp_path):
     class PILLike:
         def __init__(self, arr):
             self.arr = arr
@@ -257,8 +257,13 @@ def test_load_image_matches_jax(rng):
         np.testing.assert_array_equal(load_image(a), jimageio.load_image(a))
         np.testing.assert_array_equal(to_uint8(a), jimageio.to_uint8(a))
     np.testing.assert_array_equal(load_image(PILLike(arrays[0])), arrays[0])
-    with pytest.raises(ImageFileNotRead, match="reads no image files"):
+    with pytest.raises(FileNotFoundError):
         load_image("face.jpg")
+    with pytest.raises(FileNotFoundError):
+        jimageio.load_image("face.jpg")
+    path = save_png(tmp_path / "face.png", arrays[0])  # a real file now decodes
+    np.testing.assert_array_equal(load_image(path), jimageio.load_image(path))
+    np.testing.assert_array_equal(load_image(str(path)), arrays[0])
     with pytest.raises(TypeError):
         load_image(3)
 
@@ -369,7 +374,7 @@ def test_recognize_batch_matches_jax(engines, scenes):
     ref, got = j.recognize_batch(inputs, k=3), p.recognize_batch(inputs, k=3)
     assert [g["status"] for g in got] == [r["status"] for r in ref] == [
         "success", "error", "success", "success"]
-    assert "reads no image files" in got[1]["message"]
+    assert got[1]["message"] == ref[1]["message"]
     for g, r in zip(got, ref):
         if r["status"] == "success":
             _same_match((g["identity"], g["confidence"], g["top_k"]),
@@ -390,8 +395,8 @@ def test_recognize_all_matches_jax(engines, scenes):
             np.testing.assert_allclose(g["bbox"], r["bbox"], atol=0.01)
             assert abs(g["det_score"] - r["det_score"]) < 1e-4
             assert float(g["embedding"] @ r["embedding"]) > 0.999
-    bad = p.recognize_all("missing.jpg")
-    assert bad["status"] == "error" and "reads no image files" in bad["message"]
+    bad, jbad = p.recognize_all("missing.jpg"), j.recognize_all("missing.jpg")
+    assert bad["status"] == "error" and bad["message"] == jbad["message"] == "invalid image"
 
 
 def test_match_matches_jax(engines, rng):
@@ -414,7 +419,8 @@ def test_match_thresholds_and_empty_gallery(scenes):
     res = empty.recognize(scenes[0][0])
     assert res["status"] == "error" and res["message"] == "No database loaded"
     res = empty.recognize("missing.jpg")
-    assert res["status"] == "error" and "reads no image files" in res["message"]
+    assert res["status"] == "error"
+    assert res["message"] == "Cannot extract embedding (no face or invalid image)"
 
 
 def test_whole_image_embedding_without_detector(scenes):
