@@ -99,8 +99,18 @@ Phases, each printing its wall seconds:
     path, ``evaluate_recognition_engine`` and Grad-CAM / activation-CAM,
     each against the CPU port; decode, training, threshold search and job
     times.
+15. apps: the serving apps (``apps_phase``): galleries built through the
+    web app's builder routes, the WSGI app in process (every page, the
+    three-model compare with CAM overlays, /batch, /recognize raw and
+    multipart, with ``stream`` and ``int8``) against the same requests to
+    the app on the CPU, ``main()``'s threaded server over a socket (4
+    clients x 32 /recognize requests: requests/s, p50/p99, /stats reads
+    ``gpu`` and shows a coalesced batch), /video with the committed MJPEG
+    clip against ``process_video`` on the CPU (its frames decoded on the
+    card within ``NVJPEG_MAX_ABS``), and 8 parts of the /video_feed MJPEG
+    stream decoded; each of the six kernels must launch.
 
-Phases 7-14 are the paths: every kernel counter is set to 0 just before
+Phases 7-15 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -240,6 +250,15 @@ ENROL_LBPH_IDENTITIES, ENROL_LBPH_SAMPLES, ENROL_LBPH_SUBSET = 1_024, 4, 64
 # nvJPEG against libjpeg (PIL), the same files: the IDCT alone differs (the
 # decoder upsamples and converts nvJPEG's planes as libjpeg does).
 NVJPEG_MAX_ABS = 3  # measured on the fixtures: at most 3 levels, mean 0.019
+# The apps phase: the card's answers against the CPU port's, the same requests.
+APPS_THRESHOLD = 0.5
+APPS_CONF_TOL = 1e-3  # ArcFace / FaceNet confidences
+APPS_LBPH_RTOL = 1e-5  # LBPH chi-square distances, relative
+# CAM overlays (uint8): the enrol phase holds the CAMs within 1e-3; the jet
+# map's slope of 4 turns that into about 1 level of a heat channel (2 with
+# its truncation), blended at alpha 0.45, plus the blend's own truncation.
+APPS_OVERLAY_MAX_ABS = 3
+APPS_CLIENTS, APPS_REQUESTS = 4, 32  # socket clients x /recognize requests each
 
 
 class CheckFailed(RuntimeError):
@@ -1871,6 +1890,369 @@ def enrol_phase(card: str) -> dict:
     return launches
 
 
+def apps_phase(card: str) -> dict:
+    """The serving apps on the card (``apps/web_app``, ``apps/realtime``),
+    against the same requests to the port's app on the CPU:
+
+    1. galleries built through the app: POST /database-builder/build over
+       the fixture folder for ArcFace, FaceNet and LBPH, polled through
+       /database-builder/status/<id>; registries on the outputs (shipped
+       checkpoints and detector) on the card with ``stream`` and ``int8``,
+       and on the CPU;
+    2. the WSGI app in process: every page 200; POST / (three-model compare
+       with Grad-CAM overlays) on three fixture files, /batch with 8 files,
+       /recognize raw and multipart with 8 frames: identities and top-k
+       names equal (rows closer than the tolerance may trade places),
+       ArcFace / FaceNet confidences within ``APPS_CONF_TOL``, LBPH
+       distances within ``APPS_LBPH_RTOL``, CAM overlays within
+       ``APPS_OVERLAY_MAX_ABS`` levels; the int8 registry's top-1s equal;
+    3. ``main()``'s threaded server on 127.0.0.1:0 over a real socket:
+       ``APPS_CLIENTS`` threads x ``APPS_REQUESTS`` /recognize requests of
+       the clip's 256² JPEG frames (``http.client``): requests/s, p50/p99;
+       /stats must read ``gpu`` and show a batch of more than one request;
+    4. /video with the committed MJPEG clip, every_n=2: the frame count,
+       the identities of ``process_video`` on the CPU port, and the frames
+       decoded on the card within ``NVJPEG_MAX_ABS`` of the stored pixels;
+    5. /video_feed: 8 MJPEG parts decoded by the port's decoder,
+       /realtime_result leaves "..." within 30 s, /stop_camera.
+
+    Every kernel counter is set to 0 at the start; each of the six kernels
+    must launch in the phase."""
+    import base64
+    import http.client
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.apps import web_app
+    from facerecognition_tpu_torch.apps.realtime import (
+        SyntheticFrameSource,
+        VideoFileSource,
+        avi_frames,
+        process_video,
+    )
+    from facerecognition_tpu_torch.data.native_decode import decode_mem
+    from facerecognition_tpu_torch.inference.database_builder import DatabaseBuilder
+    from facerecognition_tpu_torch.inference.engine import Gallery
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.utils.imageio import encode_jpeg
+
+    t_phase = time.perf_counter()
+    counters = reset_counters()
+    line: dict = {"card": card}
+
+    def call(app, method, path, fields=None, body=b"", ctype=None, accept="application/json",
+             query=""):
+        if fields is not None:
+            boundary = "chipsmokeboundary"
+            parts = []
+            for name, value in fields:
+                if isinstance(value, tuple):
+                    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+                                 f'filename="{value[0]}"\r\n\r\n'.encode() + value[1] + b"\r\n")
+                else:
+                    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"'
+                                 f'\r\n\r\n{value}\r\n'.encode())
+            body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+            ctype = f"multipart/form-data; boundary={boundary}"
+        environ = {"REQUEST_METHOD": method, "PATH_INFO": path, "QUERY_STRING": query,
+                   "CONTENT_LENGTH": str(len(body)), "wsgi.input": io.BytesIO(body),
+                   "HTTP_ACCEPT": accept}
+        if ctype:
+            environ["CONTENT_TYPE"] = ctype
+        got = {}
+        chunks = app(environ, lambda status, headers: got.update(status=status))
+        data = b"".join(chunks)
+        check(got["status"] == "200 OK", f"{method} {path}: {got['status']} {data[:300]!r}")
+        return json.loads(data) if data[:1] in (b"{", b"[") else data
+
+    def fixture(rel):
+        with open(os.path.join(FIXTURES, "faces", rel), "rb") as f:
+            return f.read()
+
+    def near_tie(ref, tol):
+        """The reference's answer could flip within ``tol``: its best score
+        that close to the threshold or to the runner-up."""
+        top = ref["top_k"]
+        return abs(ref["confidence"] - APPS_THRESHOLD) <= tol or (len(top) > 1 and top[0][1] - top[1][1] <= tol)
+
+    def same_result(got, ref, what):
+        check(got["status"] == ref["status"], f"{what}: {got['status']} vs CPU {ref['status']}")
+        if got["status"] != "success":
+            return 0.0
+        if got.get("model") == "lbph":
+            check(got["identity"] == ref["identity"], f"{what}: {got['identity']} vs CPU {ref['identity']}")
+            gd, rd = np.array([d for _, d in got["top_k"]]), np.array([d for _, d in ref["top_k"]])
+            check([n for n, _ in got["top_k"]] == [n for n, _ in ref["top_k"]]
+                  and np.allclose(gd, rd, rtol=APPS_LBPH_RTOL, atol=0), f"{what}: {got['top_k']} vs CPU {ref['top_k']}")
+            return float(np.max(np.abs(gd - rd) / np.maximum(np.abs(rd), 1e-30)))
+        err = same_top_k(got["top_k"], ref["top_k"], APPS_CONF_TOL, what)
+        if not near_tie(ref, APPS_CONF_TOL):
+            check(got["identity"] == ref["identity"], f"{what}: {got['identity']} vs CPU {ref['identity']}")
+        for gf, rf in zip(got.get("faces", []), ref.get("faces", [])):
+            check(abs(gf["confidence"] - rf["confidence"]) <= APPS_CONF_TOL, f"{what}: face {gf} vs CPU {rf}")
+        check(len(got.get("faces", [])) == len(ref.get("faces", [])), f"{what}: faces differ from the CPU's")
+        return err
+
+    with tempfile.TemporaryDirectory(prefix="apps-") as tmp:
+        # 1. galleries through the app's builder routes
+        t0 = time.perf_counter()
+        builder = DatabaseBuilder(os.path.join(tmp, "databases"))
+        detector = FaceDetector(confidence_threshold=0.5)
+        builder_app = web_app.create_app(web_app.EngineRegistry(detector=detector), builder=builder)
+        outputs = {}
+        for model_type in ("arcface", "facenet", "lbph"):
+            job = call(builder_app, "POST", "/database-builder/build",
+                       [("dataset_dir", os.path.join(FIXTURES, "faces")), ("model_type", model_type)])
+            deadline = time.time() + 120
+            while True:
+                status = call(builder_app, "GET", f"/database-builder/status/{job['job_id']}")
+                if status["status"] in ("completed", "failed") or time.time() > deadline:
+                    break
+                time.sleep(0.1)
+            check(status["status"] == "completed", f"{model_type} build job: {status['status']} {status['error']}")
+            outputs[model_type] = status["output_files"]
+        line["build_s"] = time.perf_counter() - t0
+
+        def registry(device, match_kernel):
+            reg = web_app.EngineRegistry(
+                gallery_path=outputs["arcface"][0], lbph_model_path=outputs["lbph"][0],
+                detector=FaceDetector(confidence_threshold=0.5, device=device),
+                threshold=APPS_THRESHOLD, match_kernel=match_kernel, device=device)
+            facenet = reg.get("facenet")
+            facenet.gallery = Gallery.load(outputs["facenet"][0], device=device)
+            check(len(reg.get("arcface").gallery) == 16 and len(facenet.gallery) == 16
+                  and reg.get("lbph") is not None, "the built galleries did not load")
+            return reg
+
+        reg_card, reg_int8, reg_cpu = registry(None, "stream"), registry(None, "int8"), registry("cpu", "stream")
+        check(reg_card.get("arcface").device.type == "cuda", "the app's engine is not on the card")
+        app_card = web_app.create_app(reg_card, builder=builder)
+        app_int8 = web_app.create_app(reg_int8, builder=builder)
+        app_cpu = web_app.create_app(reg_cpu, builder=DatabaseBuilder(os.path.join(tmp, "cpu"), device="cpu"))
+
+        # 2. the WSGI app in process
+        for page in ("/", "/batch", "/realtime", "/database-builder", "/static/css/style.css",
+                     "/static/js/index.js", "/stats", "/healthz"):
+            call(app_card, "GET", page, accept="text/html")
+        conf_err, lbph_err, overlay_err, overlay_mean = 0.0, 0.0, 0, 0.0
+        t0 = time.perf_counter()
+        for rel in ("id0/0_baseline.jpg", "id5/1_progressive.jpg", "id11/2_gray.jpg"):
+            fields = [("image", (rel, fixture(rel))), ("threshold", str(APPS_THRESHOLD)), ("gradcam", "1")]
+            got, ref = call(app_card, "POST", "/", fields), call(app_cpu, "POST", "/", fields)
+            for m in ("arcface", "facenet", "lbph"):
+                err = same_result(got["results"][m], ref["results"][m], f"POST / {rel} {m}")
+                if m == "lbph":
+                    lbph_err = max(lbph_err, err)
+                else:
+                    conf_err = max(conf_err, err)
+            check(set(got["gradcam"]) == set(ref["gradcam"]) == {"arcface", "facenet"},
+                  f"POST / {rel}: overlays {set(got['gradcam'])} vs CPU {set(ref['gradcam'])}")
+            for m in got["gradcam"]:
+                g = decode_mem(base64.b64decode(got["gradcam"][m])).astype(np.int64)
+                r = decode_mem(base64.b64decode(ref["gradcam"][m])).astype(np.int64)
+                check(g.shape == r.shape, f"POST / {rel}: {m} overlay {g.shape} vs CPU {r.shape}")
+                overlay_err = max(overlay_err, int(np.abs(g - r).max()))
+                overlay_mean = max(overlay_mean, float(np.abs(g - r).mean()))
+        check(overlay_err <= APPS_OVERLAY_MAX_ABS, f"CAM overlays {overlay_err} levels from the CPU's")
+        page = call(app_card, "POST", "/", [("image", ("a.jpg", fixture("id3/0_baseline.jpg")))],
+                    accept="text/html")
+        check(b"data:image/png;base64" in page, "the HTML answer draws no faces")
+        line["compare_s"] = time.perf_counter() - t0
+
+        batch_files = [f"id{i}/{k}" for i, k in zip(range(0, 16, 2), ["0_baseline.jpg", "3_rgb.png"] * 4)]
+        fields = [("model", "arcface")] + [("images", (rel, fixture(rel))) for rel in batch_files]
+        got, ref = call(app_card, "POST", "/batch", fields), call(app_cpu, "POST", "/batch", fields)
+        for g, r in zip(got["results"], ref["results"]):
+            check(g["filename"] == r["filename"] and g["status"] == r["status"] == "success",
+                  f"/batch {g['filename']}: {g['status']} vs CPU {r['status']}")
+            check(abs(g["confidence"] - r["confidence"]) <= APPS_CONF_TOL,
+                  f"/batch {g['filename']}: {g['confidence']} vs CPU {r['confidence']}")
+            if abs(r["confidence"] - APPS_THRESHOLD) > APPS_CONF_TOL:
+                check(g["identity"] == r["identity"], f"/batch {g['filename']}: {g['identity']} vs {r['identity']}")
+            conf_err = max(conf_err, abs(g["confidence"] - r["confidence"]))
+
+        path = os.path.join(FIXTURES, "faces_clip.avi")
+        with open(path, "rb") as f:
+            clip = f.read()
+        frames_jpeg = [clip[o:o + n] for o, n in avi_frames(path)[2]]
+        raw = frames_jpeg[0]
+        multi = [("file", (f"f{i}.jpg", frames_jpeg[i])) for i in range(8)]
+        answers = {}
+        for name, app in (("card", app_card), ("int8", app_int8), ("cpu", app_cpu)):
+            answers[name] = (call(app, "POST", "/recognize", body=raw, ctype="image/jpeg"),
+                             call(app, "POST", "/recognize", multi))
+        for (g, r, i8, what) in [(answers["card"][0], answers["cpu"][0], answers["int8"][0], "raw")] + [
+                (g, r, i8, f"multipart frame {i}") for i, (g, r, i8) in enumerate(zip(
+                    answers["card"][1]["results"], answers["cpu"][1]["results"], answers["int8"][1]["results"]))]:
+            conf_err = max(conf_err, same_result(g, r, f"/recognize {what}"))
+            check([n for n, _ in i8["top_k"][:1]] == [n for n, _ in g["top_k"][:1]] or near_tie(g, INT8_TOL),
+                  f"/recognize {what}: int8 top-1 {i8['top_k'][:1]} vs stream {g['top_k'][:1]}")
+        check(answers["card"][1]["count"] == 8, "multipart /recognize did not answer 8 frames")
+        with_face = sum(r["identity"] != "No face" for r in answers["card"][1]["results"])
+        check(with_face >= 4, f"/recognize found a face in {with_face} of 8 clip frames")
+        line["in_process"] = {"max_abs_confidence_diff": conf_err, "max_rel_lbph_diff": lbph_err,
+                              "overlay_max_abs": overlay_err, "overlay_mean_abs": overlay_mean,
+                              "recognize_identities": [r["identity"] for r in answers["card"][1]["results"]],
+                              "recognize_frames_with_a_face": with_face}
+
+        # 3. main()'s threaded server over a socket
+        servers: list = []
+        argv = ["--port", "0", "--threads", "16", "--gallery", outputs["arcface"][0],
+                "--lbph-model", outputs["lbph"][0], "--match-kernel", "stream", "--warmup"]
+        server_thread = threading.Thread(target=web_app.main, kwargs={"argv": argv, "ready": servers.append},
+                                         daemon=True)
+        server_thread.start()
+        deadline = time.time() + 120
+        while not servers and time.time() < deadline and server_thread.is_alive():
+            time.sleep(0.05)
+        check(bool(servers), "main() did not start its server")
+        port = servers[0].server_address[1]
+        latencies: list[float] = []
+        first: list[float] = []  # each client's first request
+        failures: list[str] = []
+        lock = threading.Lock()
+
+        def get_stats() -> dict:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/stats")
+            out = json.loads(conn.getresponse().read())
+            conn.close()
+            return out
+
+        def client(c):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                for i in range(APPS_REQUESTS):
+                    body = frames_jpeg[(c * APPS_REQUESTS + i) % len(frames_jpeg)]
+                    t = time.perf_counter()
+                    conn.request("POST", "/recognize", body=body, headers={"Content-Type": "image/jpeg"})
+                    resp = conn.getresponse()
+                    data = resp.read()
+                    with lock:
+                        (latencies if i else first).append(time.perf_counter() - t)
+                        if resp.status != 200:
+                            failures.append(f"{resp.status} {data[:200]!r}")
+            finally:
+                conn.close()
+
+        try:
+            before = get_stats()["models"]["arcface"]["batching"]  # --warmup's frames
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(APPS_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            check(not failures and len(latencies) + len(first) == APPS_CLIENTS * APPS_REQUESTS,
+                  f"socket: {len(latencies) + len(first)} answers, failures {failures[:3]}")
+            stats = get_stats()
+        finally:
+            servers[0].shutdown()
+            server_thread.join(timeout=60)
+        check(not server_thread.is_alive(), "the server did not stop")
+        batching = stats["models"]["arcface"]["batching"]
+        check(stats["platform"] == "gpu", f"/stats platform {stats['platform']}")
+        # the clients' own requests and batches, without the warm-up's
+        requests, batches = (batching[key] - before[key] for key in ("requests", "batches"))
+        check(requests == APPS_CLIENTS * APPS_REQUESTS and requests > batches,
+              f"no batch coalesced the clients' requests: {before} then {batching}")
+        lat = sorted(latencies + first)
+        warm = sorted(latencies)
+        line["socket"] = {"clients": APPS_CLIENTS, "requests": len(lat), "wall_s": wall,
+                          "requests_per_s": len(lat) / wall, "latency_ms_p50": lat[(len(lat) - 1) // 2] * 1e3,
+                          "latency_ms_p99": lat[int(0.99 * (len(lat) - 1))] * 1e3,
+                          "first_request_ms": [round(x * 1e3, 3) for x in first],
+                          "after_first_p50_ms": warm[(len(warm) - 1) // 2] * 1e3,
+                          "after_first_p99_ms": warm[int(0.99 * (len(warm) - 1))] * 1e3,
+                          "stats_platform": stats["platform"], "stats_device": stats["device"],
+                          "batching": batching, "batching_before_clients": before}
+
+        # 4. /video with the committed clip
+        with open(os.path.join(FIXTURES, "faces_clip.json")) as f:
+            clip_meta = json.load(f)
+        stored = np.load(os.path.join(FIXTURES, "faces_clip_pixels.npz"))
+        src = VideoFileSource(path)
+        decode_err = 0
+        for i in range(src.frame_count):
+            frame = src.read()
+            if f"frame{i:02d}" in stored.files:
+                decode_err = max(decode_err, int(np.abs(frame.astype(np.int64)
+                                                        - stored[f"frame{i:02d}"].astype(np.int64)).max()))
+        src.release()
+        check(decode_err <= NVJPEG_MAX_ABS, f"clip frames {decode_err} levels from libjpeg's")
+        t0 = time.perf_counter()
+        video = call(app_card, "POST", "/video", [("video", ("clip.avi", clip)), ("every_n", "2")])
+        video_s = time.perf_counter() - t0
+        want = process_video(reg_cpu.get("arcface"), path, every_n=2)
+        check(video["frames"] == want["frames"] == len(clip_meta["sha256"]) // 2,
+              f"/video frames {video['frames']} vs CPU {want['frames']}")
+        for i, (g, r) in enumerate(zip(video["timeline"], want["results"])):
+            check(abs(g["confidence"] - r["confidence"]) <= APPS_CONF_TOL + 1e-4,
+                  f"/video frame {i}: {g} vs CPU {r['identity']} {r['confidence']}")
+            if not near_tie(r, APPS_CONF_TOL):
+                check(g["identity"] == r["identity"], f"/video frame {i}: {g['identity']} vs CPU {r['identity']}")
+        card_video = process_video(reg_card.get("arcface"), path, every_n=1)
+        clip_right = sum(bool(r["top_k"]) and r["top_k"][0][0] == name
+                         for r, name in zip(card_video["results"], clip_meta["identities"]))
+        line["video"] = {"frames": video["frames"], "route_s": video_s, "route_fps": video["frames"] / video_s,
+                         "process_video_fps": card_video["fps"], "process_video_frames": card_video["frames"],
+                         "clip_top1_is_its_identity": clip_right,
+                         "decode_max_abs_vs_libjpeg": decode_err,
+                         "identities": [t["identity"] for t in video["timeline"]],
+                         "clip_identities": clip_meta["identities"][::2]}
+
+        # 5. the MJPEG stream
+        environ = {"REQUEST_METHOD": "GET", "PATH_INFO": "/video_feed"}
+        stream = app_card(environ, lambda status, headers: None)
+        t0 = time.perf_counter()
+        part_ms = []
+        for part in stream:
+            part_ms.append((time.perf_counter() - t0) * 1e3 - sum(part_ms))
+            head, jpeg = part.split(b"\r\n\r\n", 1)
+            check(head == b"--frame\r\nContent-Type: image/jpeg", f"MJPEG part header {head!r}")
+            check(decode_mem(jpeg[:-2]).shape == (480, 640, 3), "an MJPEG part does not decode")
+            if len(part_ms) == 8:
+                break
+        stream_s = time.perf_counter() - t0
+        parts = len(part_ms)
+        stream.close()
+        deadline = time.time() + 30
+        while True:
+            result = call(app_card, "GET", "/realtime_result")
+            if result["identity"] != "..." or time.time() > deadline:
+                break
+            time.sleep(0.1)
+        check(result["identity"] not in ("...", "Error"), f"/realtime_result: {result}")
+        call(app_card, "POST", "/stop_camera")
+        # the stream's host work alone, the worker stopped: a synthetic frame, its encoding
+        source = SyntheticFrameSource()
+        frame_ms, encode_ms = [], []
+        for _ in range(5):
+            t = time.perf_counter()
+            frame = source.read()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            encode_jpeg(frame)
+            encode_ms.append((time.perf_counter() - t) * 1e3)
+        line["stream"] = {"parts": parts, "seconds": stream_s, "parts_per_s": parts / stream_s,
+                          "part_ms": [round(x, 3) for x in part_ms],
+                          "frame_ms_alone": statistics.median(frame_ms),
+                          "encode_ms_alone": statistics.median(encode_ms),
+                          "realtime_result": result.get("identity")}
+
+    launches = {name: c.count for name, c in counters.items()}
+    for name in KERNELS:
+        check(launches[name] > 0, f"the apps launched no {name} kernel")
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("apps", json.dumps(line), flush=True)
+    return launches
+
+
 def same_top_k(got, ref, tol: float, what: str) -> float:
     """Two top-k lists of (name, score): scores within ``tol``, names equal
     wherever the reference's neighbouring scores are more than ``tol``
@@ -2008,6 +2390,9 @@ def main() -> int:
     with phase("enrol"):
         enrol = enrol_phase(smi)
 
+    with phase("apps"):
+        apps = apps_phase(smi)
+
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
         {
@@ -2138,7 +2523,7 @@ def main() -> int:
         for kind, profile in (("int8", int8_profile), ("stream", stream_profile))}), flush=True)
     print(f"one-face path launches: {json.dumps(one_face)}", flush=True)
     print(f"staged path launches: {json.dumps(staged)}; blaze path: {json.dumps(blaze)}; "
-          f"enrolment path: {json.dumps(enrol)}", flush=True)
+          f"enrolment path: {json.dumps(enrol)}; apps: {json.dumps(apps)}", flush=True)
     print("facenet", json.dumps({
         "launches": {"one_face": facenet, "crowd": facenet_crowd, "staged": facenet_staged},
         "fused_profile": {key: facenet_profile[key] for key in (

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 compiled for ``sm_90a`` at first use into ``_build/`` (git-ignored) under a
 name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and
 the flags. The host image decoder ``csrc/decode.cpp`` is built alike with
-the host C++ compiler (``build_host``), its JPEG backend chosen from what
-the machine has (``jpeg_config``). Nothing here includes
+the host C++ compiler (``build_host``), with the libraries its caller names
+(the decoder's JPEG backend is chosen from what the machine has,
+``jpeg_config``), and so is the JPEG encoder ``csrc/jpeg_encode.cpp``. Nothing here includes
 PyTorch's headers, so a build takes seconds, not minutes. A missing
 compiler or a failed build raises with the compiler's output. The build
 writes to a temporary name and renames it into place, so there is no lock
@@ -176,16 +177,17 @@ def jpeg_config(cxx: str) -> tuple[str, tuple[str, ...]]:
     return "none", ()
 
 
-def build_host(name: str = "decode") -> Built:
-    """Build (once) and load ``csrc/<name>.cpp`` with the host C++ compiler."""
+def build_host(name: str, libs: Sequence[str] = ()) -> Built:
+    """Build (once) and load ``csrc/<name>.cpp`` with the host C++ compiler,
+    linked with the caller's ``libs`` (flags after the source)."""
     key = f"host:{name}"
     with _lock:
         if key in _loaded:
             return _loaded[key]
         cxx = find_cxx()
         source = os.path.join(CSRC_DIR, f"{name}.cpp")
-        _, jpeg_flags = jpeg_config(cxx)
-        flags = (*HOST_CXX_FLAGS, *jpeg_flags, *HOST_LIBS)
+        libs = tuple(libs)
+        flags = (*HOST_CXX_FLAGS, *libs)
         target = _target(name, source, flags)
         seconds, log = 0.0, ""
         if not os.path.exists(target):
@@ -194,7 +196,7 @@ def build_host(name: str = "decode") -> Built:
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(
-                    [cxx, *HOST_CXX_FLAGS, "-o", tmp, source, *jpeg_flags, *HOST_LIBS],
+                    [cxx, *HOST_CXX_FLAGS, "-o", tmp, source, *libs],
                     capture_output=True, text=True, timeout=NVCC_TIMEOUT_S,
                 )
                 log = proc.stdout + proc.stderr

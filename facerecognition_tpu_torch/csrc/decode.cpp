@@ -48,6 +48,18 @@ namespace {
 
 using Bytes = std::vector<uint8_t>;
 
+// Set by a failure of the machine rather than of the data: the card, its
+// driver, memory, or a build without a JPEG backend. The C entry points
+// report it apart (frt_decode_alloc returns -1, a batch row reads 2), so a
+// caller never takes it for an undecodable file.
+thread_local bool t_fault = false;
+
+bool fault(std::string *error, const std::string &message) {
+  t_fault = true;
+  *error = message;
+  return false;
+}
+
 // -- JPEG --------------------------------------------------------------------
 //
 // Both backends leave the components planar at their own sampling (the
@@ -329,6 +341,17 @@ std::string nv_status(const char *what, int status) {
          std::to_string(status) + ")";
 }
 
+// A failed nvJPEG call: the data's fault for a bad or unsupported stream,
+// the machine's for anything else (allocation, execution, architecture).
+bool nv_failed(const char *what, int status, std::string *error) {
+  const bool data = status == NVJPEG_STATUS_INVALID_PARAMETER || status == NVJPEG_STATUS_BAD_JPEG ||
+                    status == NVJPEG_STATUS_JPEG_NOT_SUPPORTED ||
+                    status == NVJPEG_STATUS_INCOMPLETE_BITSTREAM;
+  if (!data) return fault(error, nv_status(what, status));
+  *error = nv_status(what, status);
+  return false;
+}
+
 // nvJPEG's planar output (NVJPEG_OUTPUT_YUV: each component at its own
 // sampling), copied back to the host.
 bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, Planes *P,
@@ -336,22 +359,17 @@ bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, P
   NvJpeg &s = nv();
   std::lock_guard<std::mutex> lock(s.mutex);
   if (!s.ready) {
-    if (!s.init_error.empty()) {
-      *error = s.init_error;
-      return false;
-    }
+    if (!s.init_error.empty()) return fault(error, s.init_error);
     int st = nvjpegCreateSimple(&s.handle);
     if (st == NVJPEG_STATUS_SUCCESS) st = nvjpegJpegStateCreate(s.handle, &s.state);
     if (st != NVJPEG_STATUS_SUCCESS) {
       s.init_error = nv_status("initialisation", st);
-      *error = s.init_error;
-      return false;
+      return fault(error, s.init_error);
     }
     cudaError_t ce = cudaStreamCreateWithFlags(&s.stream, cudaStreamNonBlocking);
     if (ce != cudaSuccess) {
       s.init_error = std::string("JPEG: nvJPEG needs a CUDA device: ") + cudaGetErrorString(ce);
-      *error = s.init_error;
-      return false;
+      return fault(error, s.init_error);
     }
     s.ready = true;
   }
@@ -360,10 +378,7 @@ bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, P
   int widths[NVJPEG_MAX_COMPONENT] = {0};
   int heights[NVJPEG_MAX_COMPONENT] = {0};
   int st = nvjpegGetImageInfo(s.handle, data, size, &components, &subsampling, widths, heights);
-  if (st != NVJPEG_STATUS_SUCCESS) {
-    *error = nv_status("header", st);
-    return false;
-  }
+  if (st != NVJPEG_STATUS_SUCCESS) return nv_failed("header", st, error);
   if (components != L.components || (components != 1 && components != 3)) {
     *error = "JPEG: unsupported component count " + std::to_string(components);
     return false;
@@ -403,10 +418,8 @@ bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, P
     if (s.buffer) cudaFree(s.buffer);
     s.buffer = nullptr;
     s.capacity = 0;
-    if (cudaMalloc(&s.buffer, total) != cudaSuccess) {
-      *error = "JPEG: nvJPEG output buffer: cudaMalloc failed";
-      return false;
-    }
+    if (cudaMalloc(&s.buffer, total) != cudaSuccess)
+      return fault(error, "JPEG: nvJPEG output buffer: cudaMalloc failed");
     s.capacity = total;
   }
   nvjpegImage_t image;
@@ -417,17 +430,11 @@ bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, P
   }
   st = nvjpegDecode(s.handle, s.state, data, size,
                     components == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV, &image, s.stream);
-  if (st != NVJPEG_STATUS_SUCCESS) {
-    *error = nv_status("decode", st);
-    return false;
-  }
+  if (st != NVJPEG_STATUS_SUCCESS) return nv_failed("decode", st, error);
   Bytes host(total);
   cudaError_t ce = cudaMemcpyAsync(host.data(), s.buffer, total, cudaMemcpyDeviceToHost, s.stream);
   if (ce == cudaSuccess) ce = cudaStreamSynchronize(s.stream);
-  if (ce != cudaSuccess) {
-    *error = std::string("JPEG: nvJPEG copy: ") + cudaGetErrorString(ce);
-    return false;
-  }
+  if (ce != cudaSuccess) return fault(error, std::string("JPEG: nvJPEG copy: ") + cudaGetErrorString(ce));
   for (int c = 0; c < components; ++c)
     P->data[c].assign(host.begin() + offsets[c],
                       host.begin() + offsets[c] + static_cast<size_t>(P->dw[c]) * P->dh[c]);
@@ -439,10 +446,9 @@ bool decode_jpeg_planes(const uint8_t *data, size_t size, const JpegLayout &L, P
 const char *kJpegBackend = "none";
 
 bool decode_jpeg_planes(const uint8_t *, size_t, const JpegLayout &, Planes *, std::string *error) {
-  *error =
-      "JPEG: no JPEG decoder was built (neither libjpeg nor the CUDA "
-      "toolkit's nvJPEG was found)";
-  return false;
+  return fault(error,
+               "JPEG: no JPEG decoder was built (neither libjpeg nor the CUDA "
+               "toolkit's nvJPEG was found)");
 }
 
 #endif
@@ -780,7 +786,9 @@ void *batch_worker(void *arg) {
     const int i = task->next++;
     pthread_mutex_unlock(&task->mutex);
     if (i >= task->n) return nullptr;
-    task->ok[i] = decode_file_to(task->paths[i], task->out + i * stride, task->size) ? 1 : 0;
+    t_fault = false;
+    const bool ok = decode_file_to(task->paths[i], task->out + i * stride, task->size);
+    task->ok[i] = ok ? 1 : (t_fault ? 2 : 0);
   }
 }
 
@@ -800,21 +808,23 @@ const char *frt_jpeg_backend() { return kJpegBackend; }
 
 // Decode JPEG/PNG bytes at their own size. On success returns 1, sets *w,
 // *h and *out to a malloc'd w*h*3 RGB8 buffer the caller releases with
-// frt_free. On failure returns 0 and writes the reason into err.
+// frt_free. Returns 0 when the data cannot be decoded and -1 when the
+// machine failed (see t_fault); either way the reason goes into err.
 int frt_decode_alloc(const uint8_t *data, long size, uint8_t **out, int *w, int *h,
                      char *err, int err_cap) {
   Bytes rgb;
   std::string error;
   *out = nullptr;
   *w = *h = 0;
+  t_fault = false;
   if (size <= 0 || !decode_any(data, static_cast<size_t>(size), &rgb, w, h, &error)) {
     set_error(error.empty() ? "empty file" : error, err, err_cap);
-    return 0;
+    return t_fault ? -1 : 0;
   }
   *out = static_cast<uint8_t *>(malloc(rgb.size()));
   if (!*out) {
     set_error("out of memory", err, err_cap);
-    return 0;
+    return -1;
   }
   memcpy(*out, rgb.data(), rgb.size());
   return 1;
@@ -823,7 +833,8 @@ int frt_decode_alloc(const uint8_t *data, long size, uint8_t **out, int *w, int 
 void frt_free(uint8_t *ptr) { free(ptr); }
 
 // Decode n files with n_threads workers: out (n, size, size, 3) RGB8, ok (n,)
-// success flags. Returns the number decoded.
+// 1 decoded, 0 not (missing or undecodable), 2 the machine failed. Returns
+// the number decoded.
 int frt_decode_batch(const char **paths, int n, uint8_t *out, uint8_t *ok, int size,
                      int n_threads) {
   if (n <= 0) return 0;
@@ -834,7 +845,7 @@ int frt_decode_batch(const char **paths, int n, uint8_t *out, uint8_t *ok, int s
   for (auto &t : threads) pthread_create(&t, nullptr, batch_worker, &task);
   for (auto &t : threads) pthread_join(t, nullptr);
   int good = 0;
-  for (int i = 0; i < n; ++i) good += ok[i];
+  for (int i = 0; i < n; ++i) good += ok[i] == 1;
   return good;
 }
 

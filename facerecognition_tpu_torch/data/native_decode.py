@@ -6,7 +6,10 @@ the host C++ compiler at first use into ``_build/`` (``_build.build_host``):
 PNG through its own reader on zlib, JPEG through libjpeg where the machine
 has it, else through the CUDA toolkit's nvJPEG (on the card), else not at
 all; ``jpeg_backend()`` says which. There is no PIL fallback: what the
-library cannot decode raises ``OSError`` naming the format.
+library cannot decode raises ``OSError`` naming the format. A failure of
+the machine rather than of the data (the card, its driver, memory, a build
+without a JPEG backend) raises ``RuntimeError``, so that no caller takes it
+for an undecodable file.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ _OTHER_FORMATS = (
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The decoder library, built at first use, with its signatures."""
-    lib = _build.build_host("decode").lib
+    jpeg_libs = _build.jpeg_config(_build.find_cxx())[1]
+    lib = _build.build_host("decode", (*jpeg_libs, *_build.HOST_LIBS)).lib
     lib.frt_jpeg_backend.restype = ctypes.c_char_p
     lib.frt_decode_alloc.argtypes = [
         _U8P, ctypes.c_long, ctypes.POINTER(_U8P), ctypes.POINTER(ctypes.c_int),
@@ -86,7 +90,8 @@ def sniff_format(data: bytes) -> str:
 def decode_mem(data: bytes, name: Optional[str] = None) -> np.ndarray:
     """Decode JPEG/PNG bytes at their own size: (H, W, 3) uint8 RGB. Any
     other format, or a file the decoder refuses, raises ``OSError`` naming
-    the format and ``name`` (a path, for the message)."""
+    the format and ``name`` (a path, for the message); a failure of the
+    card or of memory raises ``RuntimeError``."""
     where = f"{name}: " if name else ""
     fmt = sniff_format(data)
     if fmt not in ("JPEG", "PNG"):
@@ -96,11 +101,13 @@ def decode_mem(data: bytes, name: Optional[str] = None) -> np.ndarray:
     out = _U8P()
     w, h = ctypes.c_int(0), ctypes.c_int(0)
     err = ctypes.create_string_buffer(_ERR_CAP)
-    ok = lib.frt_decode_alloc(
+    rc = lib.frt_decode_alloc(
         src.ctypes.data_as(_U8P), len(data), ctypes.byref(out), ctypes.byref(w), ctypes.byref(h),
         err, _ERR_CAP,
     )
-    if not ok:
+    if rc < 0:
+        raise RuntimeError(f"{where}{err.value.decode(errors='replace')}")
+    if rc == 0:
         raise OSError(f"{where}{err.value.decode(errors='replace')}")
     try:
         n = w.value * h.value * 3
@@ -125,7 +132,8 @@ def decode_batch(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Decode and resize (bilinear, half-pixel centres, rounded to uint8) a
     batch of files with ``n_threads`` threads: (images (N, size, size, 3)
-    uint8, ok (N,) bool); rows that failed are zero."""
+    uint8, ok (N,) bool); rows that failed are zero. A failure of the card
+    or of memory on any row raises ``RuntimeError``."""
     if size <= 0:
         raise ValueError(f"decode_batch: size must be positive, got {size}")
     lib = _lib()
@@ -136,4 +144,9 @@ def decode_batch(
         arr = (ctypes.c_char_p * n)(*[os.fspath(p).encode() for p in paths])
         lib.frt_decode_batch(arr, n, out.ctypes.data_as(_U8P), ok.ctypes.data_as(_U8P), size,
                              n_threads)
+    if (ok == 2).any():
+        bad = [os.fspath(paths[i]) for i in np.flatnonzero(ok == 2)[:3]]
+        raise RuntimeError(
+            f"decode_batch: the decoder itself failed (card, memory or JPEG backend) on {bad}"
+        )
     return out, ok.astype(bool)

@@ -1,5 +1,5 @@
 """Host image IO: paths, bytes, arrays and PIL-like images as RGB uint8 HWC,
-and a PNG writer.
+a PNG writer and a baseline JPEG writer.
 
 Counterpart of ``facerecognition_tpu/utils/imageio.py``. It imports neither
 PIL nor cv2 (the card machine's port uses neither): a path or bytes are
@@ -7,10 +7,15 @@ decoded by the port's own decoder (``data/native_decode``, JPEG and PNG), a
 PIL-like object is recognised by its ``convert`` method. A missing file
 raises ``FileNotFoundError`` and any other format ``OSError``, which the
 staged engine API reports as an error result, as the JAX engine does.
+``encode_jpeg`` is the port's own encoder (``csrc/jpeg_encode.cpp``, built
+with the host C++ compiler at first use), where the JAX app calls
+``cv2.imencode``: one code path gives the same bytes on every machine.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import struct
 import zlib
@@ -18,6 +23,7 @@ from typing import Any, Union
 
 import numpy as np
 
+from facerecognition_tpu_torch import _build
 from facerecognition_tpu_torch.data import native_decode
 
 PNG_LEVEL = 6  # zlib's default compression level
@@ -84,3 +90,40 @@ def save_png(path, image: np.ndarray) -> str:
     with open(path, "wb") as f:
         f.write(encode_png(image))
     return path
+
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jpeg_lib() -> ctypes.CDLL:
+    """The JPEG encoder library, built at first use, with its signatures."""
+    lib = _build.build_host("jpeg_encode").lib
+    lib.frt_encode_jpeg.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(_U8P)]
+    lib.frt_encode_jpeg.restype = ctypes.c_long
+    lib.frt_jpeg_free.argtypes = [_U8P]
+    lib.frt_jpeg_free.restype = None
+    return lib
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 80) -> bytes:
+    """(H, W, 3) RGB or (H, W) gray uint8 as baseline JPEG bytes: YCbCr
+    4:2:0, libjpeg's standard tables scaled by ``quality`` (1-100) and the
+    standard Huffman tables."""
+    img = to_uint8(np.asarray(rgb))
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if img.ndim != 3 or img.shape[2] != 3 or img.shape[0] < 1 or img.shape[1] < 1:
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) images, got {img.shape}")
+    img = np.ascontiguousarray(img)
+    lib = _jpeg_lib()
+    out = _U8P()
+    n = lib.frt_encode_jpeg(img.ctypes.data_as(_U8P), img.shape[1], img.shape[0], int(quality),
+                            ctypes.byref(out))
+    if n <= 0:
+        raise ValueError(f"encode_jpeg: cannot encode an image of shape {img.shape}")
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        lib.frt_jpeg_free(out)

@@ -20,7 +20,19 @@ synthid9k embedders were trained on), one file of each kind: baseline JPEG
   array PIL's ``convert("RGB")`` gives (the JAX package's ``load_image``);
 - ``faces_jpeg_pixels.npz``: those arrays in full for the JPEG files, for
   decoders whose IDCT differs from libjpeg's (nvJPEG) to be measured
-  against.
+  against;
+- ``faces_clip.avi``: a Motion-JPEG AVI (``cv2.VideoWriter``, fourcc
+  ``MJPG``) of ``CLIP_FRAMES`` 256² scenes, each with one face of a fixture
+  identity (identity ``i % IDENTITIES`` in frame ``i``), at ``CLIP_FPS``;
+- ``faces_clip.json`` and ``faces_clip_pixels.npz``: per frame the
+  identity and the SHA-256 of its pixels as libjpeg decodes them, and
+  those pixels for every ``CLIP_PIXELS_EVERY``-th frame;
+
+and, under ``facerecognition_tpu_torch/apps/``, ``label_font.npz``: the
+bitmap glyphs of printable ASCII that the web app draws its labels with,
+rasterised from cv2's Hershey simplex font at scale 0.5, thickness 1.
+
+    python3 make_torch_fixtures.py
 """
 
 from __future__ import annotations
@@ -40,6 +52,9 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "facerecognition
 IDENTITIES = 16
 SIDE = 128
 SEED = 20
+CLIP_FRAMES, CLIP_SIDE, CLIP_FPS, CLIP_SEED = 32, 256, 12.0, 21
+CLIP_PIXELS_EVERY = 8  # frames whose pixels are stored in full (the rest by digest)
+FONT_PATH = os.path.join(os.path.dirname(ROOT), "apps", "label_font.npz")
 KINDS = (
     ("baseline", "jpg", {"quality": 90}),
     ("progressive", "jpg", {"quality": 90, "progressive": True}),
@@ -66,13 +81,16 @@ def digest(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr, np.uint8).tobytes()).hexdigest()
 
 
-def main() -> None:
+def write_faces() -> list:
+    """The face files, their digests and JPEG arrays; returns the drawn
+    identities, so the clip shows the people of the files."""
     rng = np.random.default_rng(SEED)
     faces_dir = os.path.join(ROOT, "faces")
     shutil.rmtree(faces_dir, ignore_errors=True)
-    index, jpeg_pixels = {}, {}
+    index, jpeg_pixels, identities = {}, {}, []
     for i in range(IDENTITIES):
         ident = sample_identity(rng)
+        identities.append(ident)
         person = f"id{i}"
         os.makedirs(os.path.join(faces_dir, person))
         for k, (kind, ext, options) in enumerate(KINDS):
@@ -88,8 +106,69 @@ def main() -> None:
     with open(os.path.join(ROOT, "faces.json"), "w") as f:
         json.dump({"side": SIDE, "seed": SEED, "files": index}, f, indent=1, sort_keys=True)
     np.savez_compressed(os.path.join(ROOT, "faces_jpeg_pixels.npz"), **jpeg_pixels)
+    return identities
+
+
+def write_clip(identities: list) -> None:
+    """The MJPEG AVI, its per-frame identities and libjpeg digests, and
+    every ``CLIP_PIXELS_EVERY``-th decoded frame."""
+    import cv2
+
+    rng = np.random.default_rng(CLIP_SEED)
+    path = os.path.join(ROOT, "faces_clip.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), CLIP_FPS, (CLIP_SIDE, CLIP_SIDE))
+    assert writer.isOpened()
+    for i in range(CLIP_FRAMES):
+        img, *_ = render_scene(rng, CLIP_SIDE, max_faces=1, p_face=1.0,
+                               identities=[identities[i % len(identities)]])
+        writer.write(np.ascontiguousarray(np.clip(img, 0, 255).astype(np.uint8)[:, :, ::-1]))
+    writer.release()
+    # each frame as libjpeg decodes it (PIL), read from the file's chunks
+    from facerecognition_tpu_torch.apps.realtime import avi_frames
+
+    frames, names = {}, []
+    with open(path, "rb") as f:
+        data = f.read()
+    for i, (offset, size) in enumerate(avi_frames(path)[2]):
+        frames[f"frame{i:02d}"] = pil_pixels(data[offset:offset + size])
+        names.append(f"id{i % len(identities)}")
+    assert len(frames) == CLIP_FRAMES
+    with open(os.path.join(ROOT, "faces_clip.json"), "w") as f:
+        json.dump({"side": CLIP_SIDE, "fps": CLIP_FPS, "seed": CLIP_SEED, "identities": names,
+                   "sha256": [digest(frames[k]) for k in sorted(frames)]}, f, indent=1)
+    np.savez_compressed(os.path.join(ROOT, "faces_clip_pixels.npz"),
+                        **{k: v for i, (k, v) in enumerate(sorted(frames.items()))
+                           if i % CLIP_PIXELS_EVERY == 0})
+
+
+def write_font() -> None:
+    """Printable ASCII from cv2's Hershey simplex at scale 0.5, thickness 1
+    (8-connected, not anti-aliased): glyph bitmaps on a common baseline and
+    each character's advance."""
+    import cv2
+
+    font, scale = cv2.FONT_HERSHEY_SIMPLEX, 0.5
+    (_, ascent), _ = cv2.getTextSize("Ag|", font, scale, 1)
+    descent = max(cv2.getTextSize(c, font, scale, 1)[1] for c in "gjpqy|") + 1
+    chars = [chr(c) for c in range(32, 127)]
+    advances = [cv2.getTextSize(c * 2, font, scale, 1)[0][0] - cv2.getTextSize(c, font, scale, 1)[0][0]
+                for c in chars]
+    width = max(cv2.getTextSize(c, font, scale, 1)[0][0] for c in chars) + 2
+    glyphs = np.zeros((len(chars), ascent + descent, width), bool)
+    for i, c in enumerate(chars):
+        canvas = np.zeros((ascent + descent, width), np.uint8)
+        cv2.putText(canvas, c, (0, ascent), font, scale, 255, 1, cv2.LINE_8)
+        glyphs[i] = canvas > 0
+    np.savez_compressed(FONT_PATH, first=np.int32(32), baseline=np.int32(ascent),
+                        advances=np.asarray(advances, np.int32), bits=np.packbits(glyphs, axis=-1),
+                        width=np.int32(width))
+
+
+def main() -> None:
+    write_clip(write_faces())
+    write_font()
     total = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(ROOT) for n in ns)
-    print(f"{len(index)} files under {ROOT}: {total} bytes in all")
+    print(f"fixtures and font written; {total} bytes under {ROOT}")
 
 
 if __name__ == "__main__":

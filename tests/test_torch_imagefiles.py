@@ -267,6 +267,45 @@ def test_broken_files_raise(tmp_path, files):
             jimageio.load_image(str(path)).sum()
 
 
+@pytest.fixture
+def decoder_without_jpeg(monkeypatch):
+    """The decoder as a machine with neither libjpeg nor nvJPEG builds it."""
+    from facerecognition_tpu_torch import _build
+
+    def fresh():
+        _build._loaded.pop("host:decode", None)
+        pnd._lib.cache_clear()
+
+    fresh()
+    monkeypatch.setattr(_build, "jpeg_config", lambda cxx: ("none", ()))
+    yield
+    monkeypatch.undo()
+    fresh()
+
+
+def test_machine_failures_raise_runtime_error_not_os_error(decoder_without_jpeg, files):
+    """A JPEG that this build cannot decode for want of a backend is the
+    machine's failure: ``RuntimeError``, from ``decode_mem`` and from
+    ``decode_batch``, never the ``OSError`` of an undecodable file. Data
+    faults stay ``OSError`` and PNG still decodes."""
+    assert pnd.jpeg_backend() == "none"
+    with open(files["jpg_baseline_420"], "rb") as f:
+        jpg = f.read()
+    with pytest.raises(RuntimeError, match="no JPEG decoder was built"):
+        pnd.decode_mem(jpg)
+    with pytest.raises(RuntimeError, match="no JPEG decoder was built"):
+        pimageio.load_image(files["jpg_baseline_420"])
+    with pytest.raises(OSError, match="no frame header"):
+        pnd.decode_mem(jpg[:20])
+    with pytest.raises(OSError, match="unknown"):
+        pnd.decode_mem(b"not an image at all")
+    assert pnd.decode_mem(open(files["png_rgb8"], "rb").read()).ndim == 3
+    with pytest.raises(RuntimeError, match="decoder itself failed"):
+        pnd.decode_batch([files["png_rgb8"], files["jpg_baseline_420"], "missing.png"], 16)
+    _, ok = pnd.decode_batch([files["png_rgb8"], "missing.png"], 16)
+    assert ok.tolist() == [True, False]
+
+
 def test_missing_file_raises_file_not_found():
     with pytest.raises(FileNotFoundError):
         pimageio.load_image("missing.jpg")
