@@ -110,7 +110,32 @@ Phases, each printing its wall seconds:
     card within ``NVJPEG_MAX_ABS``), and 8 parts of the /video_feed MJPEG
     stream decoded; each of the six kernels must launch.
 
-Phases 7-15 are the paths: every kernel counter is set to 0 just before
+16. train: the training path (``train_phase``), in a process of its own
+    (``train_in_child``: late in this process the profiler's windows came
+    back empty). ``affine_warp``, the
+    ``warp_sample`` kernel's matrix mode, against ``affine_warp_mxu_batch``
+    at B = 128, 112² (float32 and uint8 frames) and B = 32, 160², with
+    heavy-tier, identity and guard (|m00| < 1e-6) maps: bit for bit with
+    ``fast``, within 1e-3 without, the per-slot coefficients bit for bit on
+    the card and the CPU, one kernel per call, timed against the bound.
+    One ArcFace step (ResNet50, B = 16, 112², SGD + decay + clip + warmup)
+    and one FaceNet step (P 4 x K 2, 160², semi_hard, adam) on the card, on
+    the CPU and on the CPU in float64 from the same initial variables: loss
+    within 1e-4, every gradient and BN statistic (and SGD's parameters)
+    within the larger of 1e-3 and 4x the CPU's own float32 error. The heavy
+    tier's augmentation of one batch on the card against the CPU (1e-3
+    levels, one warp); the miners' indices on the card against the CPU's
+    with planted ties (argmin/argmax take the first index). ``ArcFaceTrainer`` from ``configs/arcface_config.
+    yaml`` over 1,024 x 4 generated 128² PNG faces: 2 epochs x 8 steps,
+    resume("last") and a third epoch (checkpoint GC to keep_last_n = 2,
+    history equal, one warp a step), the exported weights served by one
+    fused ``RecognitionEngine`` call; ``FaceNetTrainer`` from
+    ``configs/facenet_config.yaml`` (2 epochs x 4 steps, the split resident
+    on the card), then a batch_hard and a remat step. The ArcFace step at
+    B = 128, 9,343 classes, heavy, resident data and the FaceNet step at
+    P 8 x K 4, 160², timed (ms, images/s, the warp's share of device time).
+
+Phases 7-16 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -259,6 +284,18 @@ APPS_LBPH_RTOL = 1e-5  # LBPH chi-square distances, relative
 # its truncation), blended at alpha 0.45, plus the blend's own truncation.
 APPS_OVERLAY_MAX_ABS = 3
 APPS_CLIENTS, APPS_REQUESTS = 4, 32  # socket clients x /recognize requests each
+# The training path: affine_warp (warp_sample's matrix mode) at the trainers'
+# shapes, (name, B, side, frame dtype); the card-vs-CPU steps; the trainers
+# over TRAIN_IDENTITIES x TRAIN_SAMPLES generated PNG faces of TRAIN_SIDE²
+# (128² → ArcFace's 112² and FaceNet's 160²); the timed steps at the
+# reference's CelebA identity count on TRAIN_RESIDENT images on the card.
+AFFINE_CASES = (("arcface_f32", 128, 112, "float32"), ("arcface_u8", 128, 112, "uint8"),
+                ("facenet_u8", 32, 160, "uint8"))
+PARITY_ARC_B, PARITY_FN_PK = 16, (4, 2)
+TRAIN_IDENTITIES, TRAIN_SAMPLES, TRAIN_SIDE = 1_024, 4, 128
+TRAIN_ARC_STEPS, TRAIN_FN_STEPS = 8, 4
+TRAIN_CLASSES = 9_343
+TRAIN_RESIDENT = 1_024
 
 
 class CheckFailed(RuntimeError):
@@ -2313,6 +2350,550 @@ def fused_profile(engine, frames, max_faces: int) -> dict:
     return line
 
 
+# -- the training path ------------------------------------------------------------
+
+
+def affine_matrices_for(kind: str, b: int, s: int, gen):
+    """(b, 2, 3) forward maps: ``heavy`` draws the heavy tier's ranges with
+    every gate on; ``identity``; ``guard`` a 90° turn whose inverse has
+    |m00| < 1e-6 (warp_coefficients' sign-preserving guard)."""
+    import math
+
+    import torch
+
+    from facerecognition_tpu_torch.data.augment import affine_matrices, augment_draws
+
+    if kind == "heavy":
+        draws = augment_draws(gen, b, s, "heavy")
+        draws["affine"] = torch.ones_like(draws["affine"])
+        return affine_matrices(draws, s)
+    ms = torch.zeros((b, 2, 3))
+    if kind == "identity":
+        ms[:, 0, 0] = ms[:, 1, 1] = 1.0
+        return ms
+    theta = math.pi / 2 + 5e-7
+    c = (s - 1) / 2.0
+    ms[:, 0, 0], ms[:, 0, 1], ms[:, 1, 0], ms[:, 1, 1] = (
+        math.cos(theta), -math.sin(theta), math.sin(theta), math.cos(theta))
+    ms[:, 0, 2] = c - ms[:, 0, 0] * c - ms[:, 0, 1] * c
+    ms[:, 1, 2] = c - ms[:, 1, 0] * c - ms[:, 1, 1] * c
+    return ms
+
+
+def affine_warp_checks(device) -> dict:
+    """``affine_warp`` (the kernel's matrix mode) against
+    ``affine_warp_mxu_batch`` on the card: at B 128, 112² with float32 and
+    uint8 frames and at B 32, 160², with heavy-tier, identity and guard
+    matrices. Bit-equal with ``fast``, within 1e-3 levels without; the
+    per-slot coefficients bit for bit against the plain ones on the card and
+    the CPU; one kernel per call (its trace). The guard's pixels are printed,
+    not gated (its shear is ill-conditioned): its coefficients and finite
+    output are. Returns the lines by (case, fast)."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.ops import warp_mxu as wm
+    from facerecognition_tpu_torch.ops import warp_sample as ws
+
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    lines = {}
+    for name, b, s, dtype in AFFINE_CASES:
+        frames_u8, _ = warp_inputs(rng, s, b, 1, device)
+        frames = frames_u8 if dtype == "uint8" else frames_u8.float()
+        for kind in ("heavy", "identity", "guard"):
+            ms = affine_matrices_for(kind, b, s, gen).to(device)
+            got_p = ws.affine_slot_parameters(frames, ms, s)
+            check(torch.equal(got_p, ws.affine_slot_parameters_plain(ms)),
+                  f"affine_warp {name} {kind}: slot parameters differ from the plain ones on the card")
+            check(torch.equal(got_p.cpu(), ws.affine_slot_parameters_plain(ms.cpu())),
+                  f"affine_warp {name} {kind}: slot parameters differ from the plain ones on the CPU")
+            for fast in (True, False):
+                kernel = lambda: ws.affine_warp(frames, ms, s, s, fast)  # noqa: E731
+                plain = lambda: wm.affine_warp_mxu_batch(frames, ms, s, s, fast=fast)  # noqa: E731
+                with strict_fp32():
+                    got = kernel()
+                    ref = plain()
+                    diff = (got - ref).abs()
+                    line = {"case": name, "matrices": kind, "frames": b, "side": s, "dtype": dtype,
+                            "fast": fast, "max_abs_err": diff.max().item(),
+                            "mean_abs_err": diff.mean().item(),
+                            "finite": bool(torch.isfinite(got).all())}
+                    check(line["finite"], f"affine_warp {name} {kind}: non-finite output")
+                    if kind != "guard":
+                        check(line["max_abs_err"] <= (0.0 if fast else 1e-3),
+                              f"affine_warp {name} {kind} fast={fast}: max |Δ| {line['max_abs_err']}")
+                    if kind == "heavy":
+                        line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
+                        line["plain_ms"] = cuda_ms(plain, 3, 1)
+                        moved = got.numel() * 4 + frames.numel() * frames.element_size() + ms.numel() * 4
+                        line["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+                        line["bound_by"] = "bytes"
+                        line["library_ms"] = None
+                        line["trace"], line["device_us"] = kernel_trace(kernel, "warp_sample")
+                print("affine_warp", json.dumps(line), flush=True)
+                lines[f"{name}/{kind}/{fast}"] = line
+    return lines
+
+
+def rel_err(a, b, floor: float = 0.0) -> float:
+    """max |a - b| / max(max |b|, floor): a tensor whose true value is 0
+    (the gradient of a bias a training-mode batch norm follows, the running
+    mean of a batch-normalised input) holds rounding only and is measured
+    against ``floor``, 1e-3 of the largest tensor of its kind."""
+    scale = max(b.abs().max().item(), floor)
+    return (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
+
+
+def parity_step(kind: str, device) -> dict:
+    """One train step on the card and on the CPU from the same initial
+    variables on a fixed batch (augmentation none, dropout 0, mixup 0):
+    ArcFace (ResNet50, B 16, 112², SGD with momentum, weight decay, clip and
+    a warmup) or FaceNet (P 4 x K 2, 160², semi_hard, adam). The CPU also
+    runs it in float64, the truth both float32 runs are measured against: a
+    training-mode batch norm over 16 samples makes some gradients of a
+    random-init ResNet50 cancel, and float32 on the CPU itself is up to 15%
+    off float64 there. Gates: the loss within 1e-4 relative; every gradient
+    tensor and BN statistic (and the SGD run's updated parameters; adam's
+    first update is about lr·sign(g), printed only) within the larger of
+    1e-3 and 4x the CPU's own float32 error, each by ``rel_err`` with its
+    floor."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.facenet import FaceNetModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+    from facerecognition_tpu_torch.training.schedules import build_schedule
+
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    if kind == "arcface":
+        b, s, classes = PARITY_ARC_B, 112, TRAIN_IDENTITIES
+        model = init_like_flax(ArcFaceModel(512, num_classes=classes, margin=0.2, easy_margin=True,
+                                            dropout=0.0), gen, ("fc",))
+        labels = torch.as_tensor(rng.integers(0, classes, b))
+        step = steps.make_arcface_train_step(label_smoothing=0.1)
+        tx = lambda m: OptaxChain(dict(m.named_parameters()), "sgd",  # noqa: E731
+                                  build_schedule(0.1, "cosine", 100, 10), momentum=0.9,
+                                  weight_decay=5e-4, grad_clip=1.0)
+    else:
+        p, k = PARITY_FN_PK
+        b, s = p * k, 160
+        model = init_like_flax(FaceNetModel(512, dropout=0.0), gen)
+        labels = torch.arange(p).repeat_interleave(k)
+        step = steps.make_facenet_train_step(0.5, "semi_hard")
+        tx = lambda m: OptaxChain(dict(m.named_parameters()), "adam",  # noqa: E731
+                                  build_schedule(3e-4, "step", 100, step_size=10, gamma=0.5))
+    images = torch.as_tensor(rng.normal(size=(b, s, s, 3)).astype(np.float32))
+    results = {}
+    for name, dev, dtype in (("card", device, torch.float32), ("cpu", torch.device("cpu"), torch.float32),
+                             ("cpu64", torch.device("cpu"), torch.float64)):
+        m = copy.deepcopy(model).to(dev, dtype)
+        state = steps.TrainState(m, tx(m))
+        grads, metrics = step.gradients(state, images.to(dev, dtype), labels.to(dev))
+        steps.apply_gradients(state, grads)
+        results[name] = {
+            "loss": metrics["loss"].item(),
+            "grads": {n: g.detach().cpu().double() for n, g in grads.items()},
+            "state": {n: t.detach().cpu().double() for n, t in m.state_dict().items()
+                      if t.is_floating_point()},
+        }
+
+    def errors(got, want):
+        floor = 1e-3 * max(t.abs().max().item() for t in want.values())
+        return {n: rel_err(got[n], t, floor) for n, t in want.items()}
+
+    def split(r):
+        return {"grads": r["grads"],
+                "stats": {n: t for n, t in r["state"].items() if "running_" in n},
+                "params": {n: t for n, t in r["state"].items() if "running_" not in n}}
+
+    card, cpu, truth = (split(results[n]) for n in ("card", "cpu", "cpu64"))
+    loss_rel = abs(results["card"]["loss"] - results["cpu"]["loss"]) / max(abs(results["cpu"]["loss"]), 1e-30)
+    line = {"kind": kind, "batch": b, "side": s, "loss_card": results["card"]["loss"],
+            "loss_cpu": results["cpu"]["loss"], "loss_cpu64": results["cpu64"]["loss"], "loss_rel": loss_rel,
+            "tensors": len(cpu["grads"])}
+    check(loss_rel <= 1e-4, f"{kind}: card loss {line['loss_card']} vs CPU {line['loss_cpu']}")
+    per_tensor = {}
+    for what in ("grads", "stats", "params"):
+        vs_cpu = errors(card[what], cpu[what])
+        own = errors(cpu[what], truth[what])  # the CPU's float32 against float64
+        vs_truth = errors(card[what], truth[what])
+        per_tensor[what] = {n: [float(f"{vs_cpu[n]:.3g}"), float(f"{own[n]:.3g}")] for n in vs_cpu}
+        worst = max(vs_cpu, key=lambda n: vs_cpu[n] / max(1e-3, 4 * own[n]))
+        line[what] = {"card_vs_cpu_max": max(vs_cpu.values()), "cpu32_vs_cpu64_max": max(own.values()),
+                      "card_vs_cpu64_max": max(vs_truth.values()),
+                      "worst": [worst, vs_cpu[worst], own[worst]]}
+        if what != "params" or kind == "arcface":
+            check(all(vs_cpu[n] <= max(1e-3, 4 * own[n]) for n in vs_cpu),
+                  f"{kind}: {what} {worst} off the CPU's by {vs_cpu[worst]} (CPU float32 vs float64: {own[worst]})")
+    print("train parity", json.dumps(line), flush=True)
+    print("train parity per tensor [card vs CPU, CPU float32 vs float64]",
+          json.dumps({"kind": kind, **per_tensor}), flush=True)
+    return line
+
+
+def heavy_augment_parity(device) -> dict:
+    """The heavy tier's augmentation of one ArcFace batch on the card and on
+    the CPU from the same draws: within 1e-3 levels; then one step on it."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.data.augment import apply_augment, augment_draws
+
+    rng = np.random.default_rng(SEED + 13)
+    b, s = PARITY_ARC_B, 112
+    frames, _ = warp_inputs(rng, s, b, 1, torch.device("cpu"))
+    draws = augment_draws(torch.Generator().manual_seed(SEED + 13), b, s, "heavy")
+    counters = reset_counters()
+    card = apply_augment(frames.to(device), {k: v.to(device) for k, v in draws.items()}, "heavy")
+    check(counters["warp_sample"].count == 1, f"heavy augmentation launched warp_sample "
+          f"{counters['warp_sample'].count} times, not once")
+    cpu = apply_augment(frames, draws, "heavy")
+    err = (card.cpu() - cpu).abs().max().item()
+    line = {"batch": b, "side": s, "max_abs_err": err, "mean_abs_err": (card.cpu() - cpu).abs().mean().item()}
+    print("train heavy augmentation", json.dumps(line), flush=True)
+    check(err <= 1e-3, f"heavy augmentation: card vs CPU {err} levels")
+    return line
+
+
+def miner_ties_check(device) -> dict:
+    """The miners on the card pick the CPU's indices on embeddings with
+    planted ties (equal rows: equal distances), and torch's argmin/argmax
+    take the first index there as on the CPU (and in JAX)."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models import facenet
+
+    x = torch.tensor([[3.0, 1.0, 1.0, 5.0, 5.0, 0.5, 0.5]], device=device)
+    check((torch.argmin(x, -1).item(), torch.argmax(x, -1).item()) == (5, 3),
+          "argmin/argmax on the card do not take the first index on ties")
+    rng = np.random.default_rng(SEED + 17)
+    p, k = 8, 4
+    emb = rng.normal(size=(p * k, 512)).astype(np.float32)
+    emb[3], emb[10], emb[14] = emb[7], emb[11], emb[2]
+    emb = torch.nn.functional.normalize(torch.as_tensor(emb), dim=1)
+    labels = torch.arange(p).repeat_interleave(k)
+    n = 0
+    for miner in (lambda e, l: facenet.mine_semi_hard(e, l, 0.5), facenet.mine_batch_hard):
+        cpu = miner(emb, labels)
+        card = miner(emb.to(device), labels.to(device))
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)), "the miners' indices differ on the card")
+        n += int(cpu[3].sum())
+    line = {"triplets_checked": n}
+    print("train miners", json.dumps(line), flush=True)
+    return line
+
+
+def write_train_faces(root: str, device) -> float:
+    """``TRAIN_IDENTITIES`` x ``TRAIN_SAMPLES`` RGB PNG faces of
+    ``TRAIN_SIDE``², a person per folder: each identity a blocky colour
+    pattern of its own, each sample it shifted and with noise. Made on the
+    card in bulk, written by 8 threads. Returns the seconds."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from facerecognition_tpu_torch.utils.imageio import save_png
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    n, k, side = TRAIN_IDENTITIES, TRAIN_SAMPLES, TRAIN_SIDE
+    coarse = torch.randint(30, 226, (n, 3, 9, 9), generator=gen, device=device).float()
+    base = torch.nn.functional.interpolate(coarse, size=(side + 8, side + 8), mode="bilinear",
+                                           align_corners=False)
+    shifts = torch.randint(0, 9, (n, k, 2), generator=gen, device=device).cpu()
+    noise = torch.randint(-10, 11, (n, k, 3, side, side), generator=gen, device=device)
+    faces = torch.stack([
+        torch.stack([base[i, :, shifts[i, j, 0]:shifts[i, j, 0] + side,
+                          shifts[i, j, 1]:shifts[i, j, 1] + side] for j in range(k)])
+        for i in range(n)])
+    faces = (faces + noise).clamp(0, 255).to(torch.uint8).permute(0, 1, 3, 4, 2).cpu().numpy()
+    for i in range(n):
+        os.makedirs(os.path.join(root, f"person{i:04d}"))
+
+    def write(i):
+        for j in range(k):
+            save_png(os.path.join(root, f"person{i:04d}", f"{j}.png"), faces[i, j])
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, range(n)))
+    return time.perf_counter() - t0
+
+
+def arcface_trainer_run(card: str, data_dir: str, ckpt_dir: str, export: str) -> dict:
+    """``ArcFaceTrainer`` on the card from ``configs/arcface_config.yaml`` as
+    shipped (ResNet50, 512-D, heavy, SGD, cosine with 2 warmup epochs, clip
+    5, smoothing 0.1, B 128), ``TRAIN_ARC_STEPS`` steps an epoch, 2 epochs,
+    a periodic checkpoint every epoch, ``keep_last_n`` 2; then ``resume
+    ("last")`` in a new trainer and one more epoch, which deletes
+    ``epoch_0``. Checks: finite losses, the tags, the resumed history, one
+    warp a step; the weights exported by ``save_variables`` and loaded by
+    ``load_arcface_model`` run one fused ``RecognitionEngine`` call."""
+    import os
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.training.train_arcface import ArcFaceTrainer
+    from facerecognition_tpu_torch.utils.serialization import save_variables
+
+    overrides = [f"data.data_dir={data_dir}", f"checkpoint.dir={ckpt_dir}",
+                 f"train.steps_per_epoch={TRAIN_ARC_STEPS}", "train.num_epochs=2",
+                 "checkpoint.save_every_epochs=1", "checkpoint.keep_last_n=2"]
+    line: dict = {"card": card}
+    t0 = time.perf_counter()
+    trainer = ArcFaceTrainer("configs/arcface_config.yaml", overrides)
+    check(trainer.device.type == "cuda", f"ArcFaceTrainer on {trainer.device}")
+    c = trainer.config
+    check((c["data"]["augmentation"], c["train"]["batch_size"], c["train"]["optimizer"])
+          == ("heavy", 128, "sgd"), f"arcface_config.yaml is not as shipped: {c}")
+    line["setup_s"] = time.perf_counter() - t0
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    history = trainer.train()
+    line["train_s"] = time.perf_counter() - t0
+    line["launches"] = {name: c.count for name, c in counters.items()}
+    check(counters["warp_sample"].count == 2 * TRAIN_ARC_STEPS,
+          f"warp_sample launched {counters['warp_sample'].count} times in {2 * TRAIN_ARC_STEPS} steps")
+    check(len(history) == 2 and all(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"])
+                                    for h in history), f"ArcFace history {history}")
+    for tag in ("best", "last", "epoch_0", "epoch_1"):
+        check(trainer.ckpt.exists(tag), f"ArcFace checkpoint {tag} missing")
+    t2 = ArcFaceTrainer("configs/arcface_config.yaml", overrides)
+    t2.resume("last")
+    check(t2.history == history, "the resumed history differs from the saved one")
+    check(t2.epoch == 2 and t2.config["train"]["num_epochs"] > 2, "resume did not auto-extend")
+    t2.config["train"]["num_epochs"] = 3
+    counters = reset_counters()
+    h2 = t2.train()
+    check(counters["warp_sample"].count == TRAIN_ARC_STEPS, "the resumed epoch did not warp once a step")
+    check(len(h2) == 3 and np.isfinite(h2[-1]["train_loss"]), f"resumed history {h2}")
+    tags = sorted(n for n in os.listdir(ckpt_dir) if n.startswith("ckpt_epoch_") and "." not in n)
+    check(tags == ["ckpt_epoch_1", "ckpt_epoch_2"], f"periodic checkpoints after GC: {tags}")
+    line["history"] = [{k: h[k] for k in ("epoch", "train_loss", "train_acc", "val_loss", "ver_acc",
+                                          "epoch_seconds")} for h in h2]
+
+    save_variables(export, t2.export_variables())
+    embedder = load_arcface_model(export)
+    gallery = Gallery(512)
+    rows = np.random.default_rng(SEED + 15).normal(size=(64, 512)).astype(np.float32)
+    gallery.add_many([f"id{r}" for r in range(64)], rows)
+    engine = RecognitionEngine(embedder, gallery, FaceDetector(confidence_threshold=0.0,
+                                                               min_face_size=0))
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    frames = smooth_frames(np.random.default_rng(SEED + 15), 4, FRAME[0])
+    counters = reset_counters()
+    out = engine.fused_recognize_frames(frames)
+    check(len(out) == 4 and counters["warp_sample"].count >= 1,
+          "the exported ArcFace checkpoint did not serve a fused call")
+    faces = [f for r in out for f in r["faces"]]
+    check(all(np.isfinite(f["embedding"]).all() for f in faces), "non-finite served embeddings")
+    line["served_faces"] = len(faces)
+    print("train arcface", json.dumps(line), flush=True)
+    return line
+
+
+def facenet_trainer_run(card: str, data_dir: str, ckpt_dir: str) -> dict:
+    """``FaceNetTrainer`` on the card from ``configs/facenet_config.yaml``
+    (P 8 x K 4, semi_hard, adam, light) at 160² over the same folder, 2
+    epochs x ``TRAIN_FN_STEPS`` steps with ``resident: auto`` (the split on
+    the card), then one step each with ``batch_hard`` and with ``remat``:
+    finite losses, triplets mined."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.data.sampler import PKSampler
+    from facerecognition_tpu_torch.training.steps import make_facenet_train_step
+    from facerecognition_tpu_torch.training.train_arcface import normalize_u8
+    from facerecognition_tpu_torch.training.train_facenet import FaceNetTrainer
+
+    overrides = [f"data.data_dir={data_dir}", f"checkpoint.dir={ckpt_dir}",
+                 f"train.steps_per_epoch={TRAIN_FN_STEPS}", "train.num_epochs=2"]
+    line: dict = {"card": card}
+    t0 = time.perf_counter()
+    trainer = FaceNetTrainer("configs/facenet_config.yaml", overrides)
+    counters = reset_counters()
+    history = trainer.train()
+    line["train_s"] = time.perf_counter() - t0
+    line["launches"] = {name: c.count for name, c in counters.items()}
+    check(trainer._resident_data is not None and trainer._resident_data.device.type == "cuda",
+          "the FaceNet train split is not resident on the card")
+    check(counters["warp_sample"].count == 2 * TRAIN_FN_STEPS, "FaceNet did not warp once a step")
+    check(all(np.isfinite(h["train_loss"]) and h["avg_triplets"] > 0 for h in history),
+          f"FaceNet history {history}")
+    line["history"] = [{k: h[k] for k in ("epoch", "train_loss", "avg_triplets", "val_loss", "ver_acc")}
+                       for h in history]
+    idx = torch.as_tensor(next(iter(PKSampler(trainer.train_index, 8, 4, seed=SEED))),
+                          device=trainer.device)
+    s = trainer.config["data"]["image_size"]
+    images = normalize_u8(trainer._resident_data.index_select(0, idx).reshape(-1, s, s, 3))
+    labels = trainer._resident_labels.index_select(0, idx)
+    for name, step in (("batch_hard", make_facenet_train_step(0.5, "batch_hard")),
+                       ("remat", make_facenet_train_step(0.5, "semi_hard", remat=True))):
+        gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+        metrics = step(trainer.state, images, labels, gen)
+        loss, n = metrics["loss"].item(), metrics["n_triplets"].item()
+        check(np.isfinite(loss) and n > 0, f"FaceNet {name} step: loss {loss}, {n} triplets")
+        line[name] = {"loss": loss, "n_triplets": n}
+    print("train facenet", json.dumps(line), flush=True)
+    return line
+
+
+def train_step_times(card: str, device) -> dict:
+    """The ArcFace step at B 128, 112², ``TRAIN_CLASSES`` classes, heavy
+    augmentation, on data resident on the card (``make_resident_step``): ms
+    a step by CUDA events, images/s, the warp's share of the step's device
+    time (profiler); the FaceNet step at P 8 x K 4, 160² (light)."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.data.augment import apply_augment, augment_draws
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.facenet import FaceNetModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+    from facerecognition_tpu_torch.training.schedules import build_schedule
+    from facerecognition_tpu_torch.training.train_arcface import normalize_u8
+
+    rng = np.random.default_rng(SEED + 16)
+    out = {"card": card}
+    for kind, b, s, tier in (("arcface", 128, 112, "heavy"), ("facenet", 32, 160, "light")):
+        gen = torch.Generator().manual_seed(SEED + 16)
+        if kind == "arcface":
+            model = init_like_flax(ArcFaceModel(512, num_classes=TRAIN_CLASSES, margin=0.2,
+                                                easy_margin=True), gen, ("fc",)).to(device)
+            raw = steps.make_arcface_train_step(0.1)
+            tx = OptaxChain(dict(model.named_parameters()), "sgd", build_schedule(0.01, "cosine", 1000, 20),
+                            weight_decay=5e-4, grad_clip=5.0)
+            labels_all = torch.as_tensor(rng.integers(0, TRAIN_CLASSES, TRAIN_RESIDENT), device=device)
+        else:
+            model = init_like_flax(FaceNetModel(512), gen).to(device)
+            raw = steps.make_facenet_train_step(0.5, "semi_hard")
+            tx = OptaxChain(dict(model.named_parameters()), "adam", build_schedule(3e-4, "step", 1000))
+            labels_all = torch.arange(TRAIN_RESIDENT // 4, device=device).repeat_interleave(4)
+        state = steps.TrainState(model, tx)
+        data, _ = warp_inputs(rng, s, TRAIN_RESIDENT, 1, device)
+        data = data.reshape(TRAIN_RESIDENT, -1)
+
+        def with_aug(st, images_u8, labels, g, tier=tier, raw=raw):
+            draws = augment_draws(g, images_u8.shape[0], images_u8.shape[1], tier)
+            return raw(st, normalize_u8(apply_augment(images_u8, draws, tier)), labels, g)
+
+        resident = steps.make_resident_step(with_aug, (s, s, 3))
+        g = torch.Generator(device=device).manual_seed(SEED)
+        if kind == "arcface":
+            batches = [torch.as_tensor(rng.integers(0, TRAIN_RESIDENT, b), device=device) for _ in range(8)]
+        else:
+            ids = [rng.choice(TRAIN_RESIDENT // 4, 8, replace=False) for _ in range(8)]
+            batches = [torch.as_tensor((i[:, None] * 4 + np.arange(4)).reshape(-1), device=device)
+                       for i in ids]
+        turn = [0]
+
+        def one():
+            turn[0] += 1
+            return resident(state, data, labels_all, batches[turn[0] % len(batches)], g)
+
+        ms = statistics.median(cuda_ms(one, 5, 2) for _ in range(3))
+        events = profile_kernels(one, calls=3)
+        total_us = sum(us for _, us in events.values())
+        warp_us = sum(us for name, (_, us) in events.items() if name.startswith("warp_sample"))
+        line = {"kind": kind, "batch": b, "side": s, "tier": tier, "ms_per_step": ms,
+                "images_per_s": b / ms * 1e3, "device_ms_per_step": total_us / 1e3,
+                "warp_device_us": warp_us, "warp_share": warp_us / total_us if total_us else None,
+                "classes": TRAIN_CLASSES if kind == "arcface" else None}
+        check(warp_us > 0, f"{kind} step trace holds no warp_sample")
+        loss = one()["loss"].item()
+        check(np.isfinite(loss), f"{kind} timed step loss {loss}")
+        print("train step time", json.dumps(line), flush=True)
+        out[kind] = line
+        state = model = data = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(card: str, device) -> dict:
+    """The training path on the card: ``affine_warp`` against its plain
+    version, one ArcFace and one FaceNet step against the CPU, the heavy
+    augmentation against the CPU, both trainers end to end over a generated
+    face folder (resume, checkpoint GC, the exported ArcFace weights served)
+    and the step times."""
+    import os
+    import tempfile
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    out = {"affine": timed("affine_warp", affine_warp_checks, device)}
+    out["parity"] = {kind: timed(f"parity_{kind}", parity_step, kind, device)
+                     for kind in ("arcface", "facenet")}
+    out["heavy"] = timed("heavy_augment", heavy_augment_parity, device)
+    out["miners"] = timed("miners", miner_ties_check, device)
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        data_dir = os.path.join(tmp, "faces")
+        timed("write_faces", write_train_faces, data_dir, device)
+        out["arcface"] = timed("arcface_trainer", arcface_trainer_run, card, data_dir,
+                               os.path.join(tmp, "ck_arc"), os.path.join(tmp, "arcface_trained.msgpack"))
+        out["facenet"] = timed("facenet_trainer", facenet_trainer_run, card, data_dir,
+                               os.path.join(tmp, "ck_fn"))
+    out["times"] = timed("step_times", train_step_times, card, device)
+    out["seconds"] = seconds
+    print("train seconds", json.dumps(seconds), flush=True)
+    return out
+
+
+def train_child(result_path: str, card: str) -> int:
+    """``train_phase`` on the card, its result written to ``result_path``
+    as JSON (the body of ``train_in_child``'s process)."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+
+    out = train_phase(card, torch.device("cuda", 0))
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def train_in_child(card: str) -> dict:
+    """The train phase in a process of its own, started here and waited
+    for: late in this process (after the serving and FaceNet phases) the
+    profiler's windows came back without any device event, and the phase
+    times its kernels by the profiler. Its lines print to this process's
+    output; its counters are set to 0 and read in that process."""
+    import os
+    import tempfile
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the child trains a ResNet50 at B = 128
+    with tempfile.TemporaryDirectory(prefix="train-child-") as tmp:
+        path = os.path.join(tmp, "train.json")
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.train_child({path!r}, {card!r}))"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=WATCHDOG_S)
+        check(proc.returncode == 0, f"the train phase's process exited with {proc.returncode}")
+        with open(path) as f:
+            return json.load(f)
+
+
 T_START = time.perf_counter()
 
 
@@ -2393,6 +2974,9 @@ def main() -> int:
     with phase("apps"):
         apps = apps_phase(smi)
 
+    with phase("train"):
+        train = train_in_child(smi)
+
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
         {
@@ -2439,6 +3023,23 @@ def main() -> int:
                  "facerecognition_tpu/ops/warp_mxu.py:249", facenet),
             )
         ),
+        {
+            "name": "warp_sample",
+            "design": WARP_DESIGN + "; matrix mode: each slot's forward map given, inverted in the launch",
+            "case": "affine_warp B=128 112x112 uint8, heavy-tier maps, fast=False",
+            "route": "cuda",
+            "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
+            "replaces": "facerecognition_tpu/ops/warp_mxu.py:57",
+            "launches": train["arcface"]["launches"]["warp_sample"],
+            "max_abs_err": max(line["max_abs_err"] for key, line in train["affine"].items()
+                               if "/guard/" not in key),
+            "ms": train["affine"]["arcface_u8/heavy/False"]["ms"],
+            "device_us": train["affine"]["arcface_u8/heavy/False"]["device_us"],
+            "plain_ms": train["affine"]["arcface_u8/heavy/False"]["plain_ms"],
+            "bound_ms": train["affine"]["arcface_u8/heavy/False"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
         {
             "name": "detect_post",
             "design": "one warp per frame: radix-select prefilter, shuffle bitonic sort, greedy NMS in registers",
@@ -2528,6 +3129,11 @@ def main() -> int:
         "launches": {"one_face": facenet, "crowd": facenet_crowd, "staged": facenet_staged},
         "fused_profile": {key: facenet_profile[key] for key in (
             "wall_ms", "device_ms", "host_gap_ms", "launches_per_call", "copies_per_call")},
+    }), flush=True)
+    print("train", json.dumps({
+        "arcface": {k: train["arcface"][k] for k in ("setup_s", "train_s", "launches", "served_faces")},
+        "facenet": {k: train["facenet"][k] for k in ("train_s", "launches", "batch_hard", "remat")},
+        "parity": train["parity"], "heavy_augment": train["heavy"], "times": train["times"],
     }), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,12 @@ Only the layouts change:
 - BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and the
   ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``
   (``num_batches_tracked`` is set to 0 so ``strict`` loading works);
-- the ArcFace margin head (``arcface``) is training-only and is skipped.
+- the ArcFace margin head (``arcface``, a (C, D) ``weight`` in both) is
+  training-only: skipped unless ``include_head``.
+
+``state_dict_to_flax`` is the inverse: a model the port trained becomes a
+flax ``{'params', 'batch_stats'}`` tree that ``utils/serialization.
+save_variables`` writes as a serving checkpoint both packages load.
 
 A reference torch checkpoint of FaceNet (``model.``/``backbone.``/
 ``module.`` prefixes, facenet-pytorch keys) needs no layout change:
@@ -49,8 +54,9 @@ def flax_module_name(path: tuple) -> str:
     return re.sub(r"(^|\.)branch(\d)_(\d+)(?=\.|$)", r"\1branch\2.\3", name)
 
 
-def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``{'params', 'batch_stats'}`` → flat torch ``state_dict``."""
+def flax_to_state_dict(variables: Mapping, include_head: bool = False) -> dict[str, torch.Tensor]:
+    """Flax ``{'params', 'batch_stats'}`` → flat torch ``state_dict``; the
+    margin head's ``arcface.weight`` too with ``include_head``."""
     out: dict[str, torch.Tensor] = {}
 
     def put(name: str, value: np.ndarray) -> None:
@@ -58,6 +64,8 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
     for path, value in _flatten(variables.get("params", {})):
         if path[0] in SKIPPED_MODULES:
+            if include_head and path == ("arcface", "weight"):
+                put("arcface.weight", value)
             continue
         module, leaf = flax_module_name(path[:-1]), path[-1]
         if leaf == "kernel":
@@ -79,6 +87,51 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         put(f"{module}.{name}", value)
         out[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
+
+
+def state_module_path(name: str) -> tuple:
+    """The port's dotted module name → the flax module path (the inverse of
+    ``flax_module_name``)."""
+    name = re.sub(r"(^|\.)repeat_(\d)\.(\d+)(?=\.|$)", r"\1repeat_\2_\3", name)
+    name = re.sub(r"(^|\.)branch(\d)\.(\d+)(?=\.|$)", r"\1branch\2_\3", name)
+    return tuple(name.split("."))
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A port model's ``state_dict`` → flax ``{'params', 'batch_stats'}`` of
+    float32 numpy arrays (the inverse of ``flax_to_state_dict`` with
+    ``include_head``): OIHW → HWIO, Linear (O, I) → Dense (I, O), batch-norm
+    ``weight``/``bias``/``running_*`` → ``scale``/``bias``/``mean``/``var``,
+    ``num_batches_tracked`` dropped."""
+    bn_modules = {k[: -len(".running_mean")] for k in state_dict if k.endswith(".running_mean")}
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: tuple, value) -> None:
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = np.ascontiguousarray(value.detach().cpu().numpy())
+
+    for key, value in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if key == "arcface.weight":
+            put(params, ("arcface", "weight"), value)
+            continue
+        path = state_module_path(module)
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            put(stats, path + ({"running_mean": "mean", "running_var": "var"}[leaf],), value)
+        elif leaf == "weight" and module in bn_modules:
+            put(params, path + ("scale",), value)
+        elif leaf == "weight":
+            put(params, path + ("kernel",),
+                value.permute(2, 3, 1, 0) if value.ndim == 4 else value.T)
+        elif leaf == "bias":
+            put(params, path + ("bias",), value)
+        else:
+            raise ValueError(f"unexpected state dict entry {key}")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_flax_variables(module: torch.nn.Module, variables: Mapping) -> None:

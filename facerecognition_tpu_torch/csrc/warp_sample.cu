@@ -5,7 +5,9 @@
 // (affine_warp_mxu_batch, bilinear_resize_mxu_batch, align_crop_mxu_batch,
 // align_crop_mxu_window; not Pallas kernels) and, around them in the fused
 // serving graph, the landmark scale and clamp, the Umeyama solve, the inverse
-// map, the crowd window and the input normalisation. The TPU computes the
+// map, the crowd window and the input normalisation. Training's augmentation
+// (data/augment.py) calls the matrix mode: each slot's forward map is given,
+// and the launch inverts it. The TPU computes the
 // warp as two dense interpolation-matrix products because it has no vector
 // gather: pass 1 resamples every source column x at row Y(i, x) = aa i +
 // bb x + cc (sheared per column), pass 2 resamples each output row at column
@@ -75,6 +77,7 @@ struct WarpArgs {
   const float* landmarks;  // (S, 5, 2); null: resize, slot s reads frame s
   float* out;              // (S, 3, out_h, out_w) float32
   float* slot_params;      // optional (S, 8): m00 m01 m02 aa bb cc x0 y0
+  const float* matrices;   // (S, 2, 3) forward maps in place of landmarks; else null
   int frames_u8, n_frames, H, W;
   int slots, per_frame;    // slot s reads frame s / per_frame
   int out_h, out_w;
@@ -243,6 +246,16 @@ __device__ __forceinline__ int clamp_origin(float v, int hi) {
 __device__ void slot_prologue(const Args& a, int s, Slot& sl) {
   sl.frame = s / a.per_frame;
   sl.x0 = 0, sl.y0 = 0, sl.reg_h = a.H, sl.reg_w = a.W;
+  if (a.matrices != nullptr) {
+    // ops/warp_mxu.affine_warp_mxu_batch: the forward map as it is given,
+    // its inverse and coefficients (no landmarks, no window).
+    float ms[6], inv[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ms[k] = a.matrices[(size_t)s * 6 + k];
+    invert_affine(ms, inv);
+    coefficients(inv, sl);
+    return;
+  }
   float lm[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) {
@@ -674,14 +687,18 @@ void launch(const Args& a, const Tiling& tl, int tiles, cudaStream_t st) {
 extern "C" {
 
 // See Args. Slot s writes out[s] (3, out_h, out_w) float32: resized from
-// frame s (landmarks == nullptr), or warped from frame s / per_frame by the
-// map its landmarks give, from the whole frame or (window > 0) from its
-// window^2 crop, zero outside it. Returns 0, a CUDA error code, or -1 for
+// frame s (landmarks and matrices null), warped from frame s by its forward
+// map matrices[s], or warped from frame s / per_frame by the map its
+// landmarks give, from the whole frame or (window > 0) from its window^2
+// crop, zero outside it. Returns 0, a CUDA error code, or -1 for
 // arguments it cannot run.
 int warp_sample_launch(const WarpArgs* args, int device, void* stream) {
   if (args == nullptr) return -1;
   const Args& a = *args;
-  const bool resize = a.landmarks == nullptr;
+  const bool resize = a.landmarks == nullptr && a.matrices == nullptr;
+  if ((a.landmarks != nullptr && a.matrices != nullptr) ||
+      (a.matrices != nullptr && (a.per_frame != 1 || a.window != 0)))
+    return -1;
   if (a.frames == nullptr || a.out == nullptr || a.slots < 1 || a.n_frames < 1 || a.H < 1 ||
       a.W < 1 || a.out_h < 1 || a.out_w < 1 || a.per_frame < 1 ||
       (long long)a.n_frames * a.per_frame != a.slots || a.window < 0 || a.window > a.H ||

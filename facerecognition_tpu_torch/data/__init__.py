@@ -1,1 +1,2 @@
-"""Host-side data: the image decoder's bindings and dataset indexes."""
+"""Host-side data: the image decoder's bindings, dataset indexes, samplers,
+the batch loader, and the training augmentation (which runs on the card)."""

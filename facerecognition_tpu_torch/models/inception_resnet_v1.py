@@ -7,7 +7,10 @@ names are facenet-pytorch's state-dict keys (``repeat_1.0.branch1.0.conv``,
 NHWC, as in the JAX package; concatenations on the channel axis keep NHWC's
 order. Convolutions are VALID unless padded explicitly, the pools are VALID
 3x3/2 max pools and a mean, and batch norm uses eps 1e-3 (facenet-pytorch's,
-not ResNet's 1e-5). Dropout is the identity at inference.
+not ResNet's 1e-5). Dropout is the identity at inference; in training mode
+``dropout`` (0.6) is flax's, drawn from the generator the forward is given,
+and the batch norms update their running statistics as flax's do
+(``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Sequence, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from facerecognition_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, dropout
 
 BN_EPS = 1e-3
 #: Below this side the VALID reduction chain reaches a zero-size map at
@@ -32,7 +37,7 @@ class BasicConv2d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: Size, stride: int = 1, padding: Size = 0):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
@@ -140,8 +145,9 @@ class InceptionResnetV1(nn.Module):
     output (callers L2-normalise); with ``return_feature_map`` also the
     ``block8`` map (B, 1792, h, w) NCHW, which Grad-CAM taps."""
 
-    def __init__(self):
+    def __init__(self, dropout: float = 0.6):
         super().__init__()
+        self.dropout = dropout
         self.conv2d_1a = BasicConv2d(3, 32, 3, stride=2)
         self.conv2d_2a = BasicConv2d(32, 32, 3)
         self.conv2d_2b = BasicConv2d(32, 64, 3, padding=1)
@@ -155,19 +161,20 @@ class InceptionResnetV1(nn.Module):
         self.repeat_3 = nn.Sequential(*[Block8(0.20) for _ in range(5)])
         self.block8 = Block8(no_relu=True)
         self.last_linear = nn.Linear(1792, 512, bias=False)
-        self.last_bn = nn.BatchNorm1d(512, eps=BN_EPS)
+        self.last_bn = BatchNorm1d(512, eps=BN_EPS)
 
-    def forward(self, x: torch.Tensor, return_feature_map: bool = False):
+    def forward(self, x: torch.Tensor, return_feature_map: bool = False, generator=None):
         if x.shape[1] < MIN_INPUT or x.shape[2] < MIN_INPUT:
             raise ValueError(
                 f"InceptionResnetV1 needs inputs >= {MIN_INPUT}px, got "
                 f"{tuple(x.shape[1:3])} (the FaceNet contract is 160x160)"
             )
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.to(self.conv2d_1a.conv.weight.dtype).permute(0, 3, 1, 2)
         x = self.conv2d_2b(self.conv2d_2a(self.conv2d_1a(x)))
         x = _maxpool(x)
         x = self.conv2d_4b(self.conv2d_4a(self.conv2d_3b(x)))
         x = self.repeat_3(self.mixed_7a(self.repeat_2(self.mixed_6a(self.repeat_1(x)))))
         fmap = self.block8(x)
-        emb = self.last_bn(self.last_linear(fmap.mean(dim=(2, 3))))
+        pooled = dropout(fmap.mean(dim=(2, 3)), self.dropout, self.training, generator)
+        emb = self.last_bn(self.last_linear(pooled))
         return (emb, fmap) if return_feature_map else emb

@@ -3,7 +3,8 @@
 Counterpart of ``facerecognition_tpu/models/resnet.py`` for any
 ``stage_sizes``. Input is NHWC, as in the JAX package; module names follow
 the flax ones (``layer1_0``, ``downsample_conv``) so ``convert.py`` carries
-weights across by name.
+weights across by name. In training mode (``module.train()``) the batch
+norms update their running statistics as flax's do (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from facerecognition_tpu_torch.models.layers import BatchNorm2d
+
 BN_EPS = 1e-5
 
 
@@ -23,14 +26,14 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, width: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(width, eps=BN_EPS)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(width, eps=BN_EPS)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(width * 4, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(width * 4, eps=BN_EPS)
         if downsample:
             self.downsample_conv = nn.Conv2d(cin, width * 4, 1, stride=stride, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(width * 4, eps=BN_EPS)
+            self.downsample_bn = BatchNorm2d(width * 4, eps=BN_EPS)
         else:
             self.downsample_conv = None
 
@@ -53,7 +56,7 @@ class ResNet50Backbone(nn.Module):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.blocks = []
         cin = 64
         for stage, (n_blocks, width, stride) in enumerate(
@@ -69,7 +72,7 @@ class ResNet50Backbone(nn.Module):
                 cin = width * 4
 
     def forward(self, x: torch.Tensor, return_feature_map: bool = False):
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         # MaxPool2d pads with -inf, as the JAX model pads before its pool.
         x = F.max_pool2d(x, 3, stride=2, padding=1)

@@ -14,7 +14,9 @@ Public functions:
   NHWC view (the models' ``permute(0, 3, 1, 2)`` then hands the convolutions
   a contiguous NCHW tensor);
 - ``bilinear_resize``, ``align_crop``, ``align_crop_window``: the same
-  kernel with the normalisation off, the counterparts of the JAX functions.
+  kernel with the normalisation off, the counterparts of the JAX functions;
+- ``affine_warp``: the kernel's matrix mode, each slot warped by a given
+  forward map (``affine_warp_mxu_batch``; training's augmentation).
 
 A tensor on the CPU takes the plain version (the composition of the plain
 functions). A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -49,6 +51,7 @@ class _Args(ctypes.Structure):
         ("landmarks", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("slot_params", ctypes.c_void_p),
+        ("matrices", ctypes.c_void_p),
         *((name, ctypes.c_int) for name in (
             "frames_u8", "n_frames", "H", "W", "slots", "per_frame", "out_h", "out_w",
             "window", "fast", "normalize",
@@ -111,6 +114,16 @@ def _check_landmarks(frames: torch.Tensor, landmarks: torch.Tensor) -> None:
         raise ValueError(f"landmarks on {landmarks.device}, frames on {frames.device}")
 
 
+def _check_matrices(frames: torch.Tensor, ms: torch.Tensor) -> None:
+    if ms.ndim != 3 or tuple(ms.shape[1:]) != (2, 3) or ms.shape[0] != frames.shape[0]:
+        raise ValueError(
+            f"matrices must be ({frames.shape[0]}, 2, 3) for {frames.shape[0]} frames, "
+            f"got {tuple(ms.shape)}"
+        )
+    if ms.device != frames.device:
+        raise ValueError(f"matrices on {ms.device}, frames on {frames.device}")
+
+
 def _template(out_size: int) -> list[float]:
     """The template scaled to ``out_size``, as ``warp_mxu.align_matrices``
     scales it."""
@@ -128,15 +141,23 @@ def _launch(
     lm_bounds: tuple[float, float, float] = (-_INF, _INF, _INF),
     norm: Optional[tuple[float, float, float]] = None,
     slot_params: Optional[torch.Tensor] = None,
+    matrices: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One launch: (S, 3, out_h, out_w) float32 planar, returned as the
-    (S, out_h, out_w, 3) view. Without landmarks slot s resizes frame s;
-    with (B, M, 5, 2) landmarks slot s warps frame s // M, from its
+    (S, out_h, out_w, 3) view. Without landmarks or matrices slot s resizes
+    frame s; with (B, 2, 3) forward ``matrices`` slot s warps frame s by its
+    map; with (B, M, 5, 2) landmarks slot s warps frame s // M, from its
     ``window``² crop when ``window`` > 0."""
     _check_frames(frames)
     b, h, w, _ = frames.shape
     device = frames.device
-    if landmarks is None:
+    if matrices is not None:
+        if landmarks is not None or window:
+            raise ValueError("matrices take the place of landmarks and a window")
+        _check_matrices(frames, matrices)
+        matrices = matrices.float().contiguous()
+        per_frame, region = 1, (h, w)
+    elif landmarks is None:
         per_frame, region = 1, (h, w)
     else:
         _check_landmarks(frames, landmarks)
@@ -160,6 +181,7 @@ def _launch(
         landmarks=None if landmarks is None else landmarks.data_ptr(),
         out=out.data_ptr(),
         slot_params=None if slot_params is None else slot_params.data_ptr(),
+        matrices=None if matrices is None else matrices.data_ptr(),
         frames_u8=int(frames.dtype == torch.uint8), n_frames=b, H=h, W=w,
         slots=slots, per_frame=per_frame, out_h=out_h, out_w=out_w,
         window=window, fast=int(fast), normalize=int(norm is not None),
@@ -242,6 +264,13 @@ def slot_parameters_plain(
     return torch.cat([coef, origin.float()], 1)
 
 
+def affine_slot_parameters_plain(ms: torch.Tensor) -> torch.Tensor:
+    """Each slot's (m00, m01, m02, aa, bb, cc, 0, 0) from its forward map,
+    as ``affine_warp_mxu_batch`` computes them: (B, 8) float32."""
+    coef = warp_mxu.warp_coefficients(invert_affine(ms.float()))
+    return torch.cat([coef, coef.new_zeros((coef.shape[0], 2))], 1)
+
+
 # -- the wrappers ----------------------------------------------------------------
 
 
@@ -285,6 +314,31 @@ def align_crop_window(
         return _align_plain(frames, landmarks, out_size, window, fast)
     _, h, w, _ = frames.shape
     return _launch(frames, out_size, out_size, fast, landmarks, min(window, h, w))
+
+
+def affine_warp(
+    frames: torch.Tensor, ms: torch.Tensor, out_h: int, out_w: int, fast: bool = False
+) -> torch.Tensor:
+    """``warp_mxu.affine_warp_mxu_batch``: frames (B, H, W, 3) uint8 or
+    float32, each warped by its (B, 2, 3) forward map (cv2.warpAffine
+    convention) → (B, out_h, out_w, 3) float32, zero outside the frame. The
+    kernel inverts each map in the launch (on the card an NHWC view of NCHW
+    memory)."""
+    _check_fast(fast)
+    if frames.device.type == "cpu":
+        return warp_mxu.affine_warp_mxu_batch(frames, ms, out_h, out_w, fast=fast)
+    return _launch(frames, out_h, out_w, fast, matrices=ms)
+
+
+def affine_slot_parameters(frames: torch.Tensor, ms: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Each slot's (m00, m01, m02, aa, bb, cc, 0, 0) as ``affine_warp``
+    computes them, (B, 8) float32: from the kernel's prologue on the card (one
+    launch, its output dropped), from the plain functions on the CPU."""
+    if frames.device.type == "cpu":
+        return affine_slot_parameters_plain(ms)
+    params = torch.empty((frames.shape[0], 8), dtype=torch.float32, device=frames.device)
+    _launch(frames, out_size, out_size, True, slot_params=params, matrices=ms)
+    return params
 
 
 def detector_input(frames: torch.Tensor, size: int, fast: bool = True) -> torch.Tensor:

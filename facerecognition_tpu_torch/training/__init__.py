@@ -1,1 +1,1 @@
-"""Training entry points of the port (the LBPH trainer)."""
+"""Training entry points of the port: the ArcFace, FaceNet and LBPH trainers."""

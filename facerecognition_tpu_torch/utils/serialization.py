@@ -1,4 +1,4 @@
-"""Read flax msgpack checkpoints without flax or the msgpack package.
+"""Read and write flax msgpack checkpoints without flax or the msgpack package.
 
 The shipped assets were written by ``flax.serialization.msgpack_serialize``:
 nested maps of str keys whose leaves are arrays packed as msgpack ext type 1,
@@ -6,11 +6,14 @@ a nested msgpack of ``(shape, dtype name, raw bytes)``. Ext type 3 is a numpy
 scalar in the same packing and ext type 2 a complex number. Arrays above
 2**30 bytes are split into a ``__msgpack_chunked_array__`` map of chunks.
 This module decodes that subset of msgpack in plain Python, so the port
-loads the same files on a machine that has neither flax nor msgpack.
+loads the same files on a machine that has neither flax nor msgpack, and
+``save_variables`` writes them as ``flax.serialization.msgpack_serialize``
+does, byte for byte, so a model the port trains serves from either package.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any
 
@@ -135,3 +138,135 @@ def load_variables(path: str) -> Any:
     """Load a variables tree saved by the JAX package's ``save_variables``."""
     with open(path, "rb") as f:
         return _unchunk(unpackb(f.read()))
+
+
+# -- writing ---------------------------------------------------------------------
+
+#: flax splits arrays above this many bytes into chunks.
+MAX_CHUNK_SIZE = 2**30
+
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int, codes) -> None:
+    """A length header: the fix form below ``fix_max``, then 8/16/32-bit
+    forms (``codes``: their type bytes, None where msgpack has none)."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of length {n} is too large")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 128 or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = (
+        ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16), (0xCE, ">I", 0, 1 << 32),
+         (0xCF, ">Q", 0, 1 << 64))
+        if v >= 0 else
+        ((0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0), (0xD2, ">i", -(1 << 31), 0),
+         (0xD3, ">q", -(1 << 63), 0))
+    )
+    for code, fmt, lo, hi in forms:
+        if lo <= v < hi:
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialised")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, complex):
+        _pack_ext(out, _EXT_COMPLEX, packb((obj.real, obj.imag)))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(out, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack(out, item)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for key, value in obj.items():
+            _pack(out, key)
+            _pack(out, value)
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object as msgpack (the subset flax writes; str8 and bin
+    types, as ``use_bin_type=True`` packs them)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def _host_tree(tree: Any) -> Any:
+    """Tensors and arrays as numpy arrays, arrays above ``MAX_CHUNK_SIZE``
+    bytes as flax's chunked maps, map keys sorted (as flax's tree copy
+    orders them)."""
+    if isinstance(tree, dict):
+        return {str(k): _host_tree(tree[k]) for k in sorted(tree)}
+    if hasattr(tree, "detach") and hasattr(tree, "cpu"):  # a torch tensor
+        tree = tree.detach().cpu().numpy()
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        flat = tree.reshape(-1)
+        size = max(1, int(MAX_CHUNK_SIZE / tree.dtype.itemsize))
+        chunks = [flat[i : i + size] for i in range(0, flat.size, size)]
+        return {
+            "__msgpack_chunked_array__": True,
+            "shape": {str(i): d for i, d in enumerate(tree.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)},
+        }
+    return tree
+
+
+def save_variables(path: str, variables: Any) -> None:
+    """Write a variables tree (``params``/``batch_stats`` of numpy arrays or
+    tensors) as the JAX package's ``save_variables`` does."""
+    data = packb(_host_tree(variables))
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -273,3 +273,48 @@ def test_new_kernels_on_cpu_take_the_plain_path(rng):
 
     dp.detect_post(raw, torch.as_tensor(anchor_centers(128)), 0.3, 2)
     assert (ws.launches.count, dp.launches.count) == before
+
+
+def _meta_maps(n=2, shape=(2, 3)):
+    return torch.zeros((n, *shape), device="meta")
+
+
+@pytest.mark.parametrize(
+    "call, error",
+    [
+        (lambda: ws.affine_warp(_meta_frames(torch.float64), _meta_maps(), 16, 16), TypeError),
+        (lambda: ws.affine_warp(_meta_frames(), _meta_maps(shape=(3, 3)), 16, 16), ValueError),
+        (lambda: ws.affine_warp(_meta_frames(), _meta_maps(3), 16, 16), ValueError),
+        (lambda: ws.affine_warp(_meta_frames(), torch.zeros(2, 2, 3), 16, 16), ValueError),  # mixed devices
+        (lambda: ws.affine_warp(_meta_frames(), _meta_maps(), 16, 16, fast="int8"), NotImplementedError),
+        (lambda: ws._launch(_meta_frames(), 16, 16, False, torch.zeros(2, 1, 5, 2, device="meta"),
+                            matrices=_meta_maps()), ValueError),  # maps and landmarks together
+    ],
+)
+def test_affine_warp_checks_before_launch(call, error):
+    before = ws.launches.count
+    with pytest.raises(error):
+        call()
+    assert ws.launches.count == before
+
+
+def test_affine_warp_off_cpu_never_takes_the_plain_path(tmp_path, monkeypatch):
+    """The training augmentation's warp on a tensor that is not on the CPU
+    goes to the kernel (here its build, which fails without nvcc), never to
+    the plain two-pass warp."""
+    from facerecognition_tpu_torch.data.augment import apply_augment, augment_draws
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(warp_mxu, "affine_warp_mxu_batch", lambda *a, **k: pytest.fail("fell back"))
+    before = ws.launches.count
+    for call in (
+        lambda: ws.affine_warp(_meta_frames(), _meta_maps(), 16, 16),
+        lambda: ws.affine_slot_parameters(_meta_frames(), _meta_maps(), 16),
+        lambda: apply_augment(_meta_frames(), augment_draws(None, 2, 32, "heavy", device="meta"), "heavy"),
+    ):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert ws.launches.count == before
