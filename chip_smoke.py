@@ -111,7 +111,7 @@ Phases, each printing its wall seconds:
     stream decoded; each of the six kernels must launch.
 
 16. train: the training path (``train_phase``), in a process of its own
-    (``train_in_child``: late in this process the profiler's windows came
+    (``in_child``: late in this process the profiler's windows came
     back empty). ``affine_warp``, the
     ``warp_sample`` kernel's matrix mode, against ``affine_warp_mxu_batch``
     at B = 128, 112² (float32 and uint8 frames) and B = 32, 160², with
@@ -134,8 +134,30 @@ Phases, each printing its wall seconds:
     on the card), then a batch_hard and a remat step. The ArcFace step at
     B = 128, 9,343 classes, heavy, resident data and the FaceNet step at
     P 8 x K 4, 160², timed (ms, images/s, the warp's share of device time).
+17. synth: the procedural renderer and the two trainers that use it
+    (``synth_phase``, in a process of its own). The port's renderer on the
+    host against the committed fixture the JAX package rendered
+    (``tools/scene_fixture``: generator states, ``valid``, JPEG flags and
+    geometry equal, pixels within the CPU tests' bounds, nvJPEG's
+    ``NVJPEG_MAX_ABS`` on top for JPEG'd scenes); scenes/s of
+    ``scene_batch(64, 128, 2, v4)`` on one and on four threads; JPEG
+    encode/decode per scene and four threads decoding at once. The shipped
+    ``detector_v4_128`` through ``evaluate_detector`` on the fixture's
+    seed (v3 and v4 scenes): recall, mean IoU and false positives an image
+    within ``SYNTH_SHIPPED_TOL`` of the JAX numbers in the fixture,
+    ``detect_post`` once a scene. The v4 curriculum as
+    ``scripts/train_detector_v4.py`` runs it, cut to ``SYNTH_STEPS`` steps
+    (DenseDetNet from ``detector_v3_128``, 128², B 64, v4, lr 7e-4, four
+    producer threads): step ms by CUDA events, the device's busy share, the
+    producers' queue wait, the loss; the checkpoint saved, calibrated on
+    ``SYNTH_CAL_SCENES`` scenes, and its recall on v3 and v4 scenes within
+    ``SYNTH_RECALL_TOL`` of the warm start's. ``train_synthid`` through
+    ``main()`` at 9,343 classes, (1,1,1,1), 512-D, B 128, resident, one
+    epoch (render seconds, step ms, images/s, retrieval metrics, one
+    ``warp_sample`` a step); its checkpoint in a ``RecognitionEngine``
+    names 32 enrolled aligned samples top-1.
 
-Phases 7-16 are the paths: every kernel counter is set to 0 just before
+Phases 7-17 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -2858,24 +2880,338 @@ def train_phase(card: str, device) -> dict:
     return out
 
 
-def train_child(result_path: str, card: str) -> int:
-    """``train_phase`` on the card, its result written to ``result_path``
-    as JSON (the body of ``train_in_child``'s process)."""
+SYNTH_STEPS = 300  # curriculum steps; scripts/train_detector_v4.py runs 4,000
+SYNTH_EVAL_SCENES = 200  # per envelope, seed 778 (the v4 script evaluates 250)
+SYNTH_CAL_SCENES = 100  # the v4 script fits on 300
+SYNTH_IDS = 9_343  # the shipped synthid9k embedder's classes
+SYNTH_RENDER_BUDGET_S = 90.0  # above it the identity set takes 1 train sample an id, not 2
+SYNTH_RECALL_TOL = 0.05  # the curriculum's recall against its warm start
+SYNTH_SHIPPED_TOL = 0.02  # the shipped v4 detector on the port's scenes against JAX's numbers
+
+
+def renderer_checks(card: str) -> dict:
+    """The port's renderer on this machine's host: the fixture's scenes
+    (rendered by the JAX package) within the CPU tests' bounds, nvJPEG's on
+    top for the JPEG'd ones; scenes/s of ``scene_batch(64, 128, 2, v4)`` on
+    one thread and on four at once; the JPEG step's decode per scene, and
+    four threads decoding at once against one after another."""
+    import threading
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.data import native_decode
+    from facerecognition_tpu_torch.tools import scene_fixture
+    from facerecognition_tpu_torch.training import synthetic_faces as sf
+    from facerecognition_tpu_torch.utils.imageio import encode_jpeg
+
+    line: dict = {"card": card, "jpeg_backend": native_decode.jpeg_backend()}
+    ref, record = scene_fixture.load()
+    t0 = time.perf_counter()
+    ours, states = scene_fixture.render_port()
+    line["fixture_render_s"] = time.perf_counter() - t0
+    try:
+        line["fixture"] = scene_fixture.compare(ours, states, ref, record, extra_jpeg_abs=NVJPEG_MAX_ABS)
+    except AssertionError as err:
+        check(False, f"the port's scenes against the JAX fixture: {err}")
+    check(line["fixture"]["jpeg_scenes"] >= 1, "no fixture scene took the JPEG step")
+
+    t0 = time.perf_counter()
+    imgs = sf.scene_batch(np.random.default_rng(SEED + 30), 64, 128, 2, ranges=sf.RANGES_V4)[0]
+    line["scenes_per_s_1_thread"] = 64 / (time.perf_counter() - t0)
+    done: dict = {}
+
+    def produce(t):
+        done[t] = sf.scene_batch(np.random.default_rng(SEED + 31 + t), 64, 128, 2, ranges=sf.RANGES_V4)
+
+    threads = [threading.Thread(target=produce, args=(t,)) for t in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    line["scenes_per_s_4_threads"] = 4 * 64 / (time.perf_counter() - t0)
+    check(len(done) == 4, "a producer thread failed")
+
+    blobs = [encode_jpeg(img.astype(np.uint8), 60) for img in imgs]
+    t0 = time.perf_counter()
+    one = [native_decode.decode_mem(b) for b in blobs]
+    line["jpeg_decode_ms_per_scene"] = (time.perf_counter() - t0) / len(blobs) * 1e3
+    t0 = time.perf_counter()
+    for img in imgs[:16]:
+        encode_jpeg(img.astype(np.uint8), 60)
+    line["jpeg_encode_ms_per_scene"] = (time.perf_counter() - t0) / 16 * 1e3
+    many: dict = {}
+
+    def decode(t):
+        many[t] = [native_decode.decode_mem(b) for b in blobs[t::4]]
+
+    threads = [threading.Thread(target=decode, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for t in range(4):
+        for got, want in zip(many[t], one[t::4]):
+            check(np.array_equal(got, want), "decoding from four threads at once changed pixels")
+    print("synth renderer", json.dumps(line), flush=True)
+    return line
+
+
+def shipped_detector_eval(card: str) -> dict:
+    """The shipped ``detector_v4_128`` through the port's
+    ``evaluate_detector`` on the fixture's seed, v3 and v4 envelopes:
+    recall, mean IoU and false positives an image within
+    ``SYNTH_SHIPPED_TOL`` of the JAX package's numbers on JAX's scenes;
+    ``detect_post`` once a scene."""
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.tools import scene_fixture
+    from facerecognition_tpu_torch.training import synthetic_faces as sf
+    from facerecognition_tpu_torch.training.train_detector import evaluate_detector
+
+    _, record = scene_fixture.load()
+    ev = record["spec"]["evaluate"]
+    det = FaceDetector(weights="assets/detector_v4_128.msgpack")
+    check(det.device.type == "cuda", f"detector on {det.device}")
+    line: dict = {"card": card, "n_scenes": ev["n_scenes"], "seed": ev["seed"]}
+    for r in ev["ranges"]:
+        counters = reset_counters()
+        got = evaluate_detector(det, n_scenes=ev["n_scenes"], seed=ev["seed"], max_faces=ev["max_faces"],
+                                ranges=sf.SCENE_RANGES[r])
+        launches = counters["detect_post"].count
+        want = record["detector_v4_128"][r]
+        check(launches == ev["n_scenes"], f"detect_post launched {launches} times for {ev['n_scenes']} scenes")
+        check(got["n_gt"] == want["n_gt"], f"{r}: {got['n_gt']} faces, JAX scenes hold {want['n_gt']}")
+        for key in ("recall", "mean_iou", "fp_per_image"):
+            check(abs(got[key] - want[key]) <= SYNTH_SHIPPED_TOL,
+                  f"shipped v4 detector on {r} scenes: {key} {got[key]} against JAX's {want[key]}")
+        line[r] = {"port": got, "jax": want, "detect_post_launches": launches}
+    print("synth shipped detector", json.dumps(line), flush=True)
+    return line
+
+
+def curriculum_run(card: str, tmp: str) -> dict:
+    """``scripts/train_detector_v4.py`` on the port, its depth cut to
+    ``SYNTH_STEPS``: DenseDetNet from ``detector_v3_128`` (calibration and
+    arch popped), 128², B 64, ``max_faces`` 2, v4 scenes, lr 7e-4, four
+    producer threads. Step ms by CUDA events, the device's busy share (the
+    profiler's device time of a step on a fixed batch over the wall time a
+    step took in the run), the producers' queue wait a step, the loss
+    history; then ``save_variables`` with ``arch``, ``fit_score_calibration``
+    and the calibrated checkpoint's recall against the warm start's on the
+    same v3 and v4 scenes (seed 778)."""
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.detector_net import anchor_centers
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.training import synthetic_faces as sf
+    from facerecognition_tpu_torch.training import train_detector as td
+    from facerecognition_tpu_torch.utils.serialization import load_variables, save_variables
+
+    init = load_variables("assets/detector_v3_128.msgpack")
+    init.pop("calibration", None)
+    arch = init.pop("arch", b"blaze")
+    arch = arch.decode() if isinstance(arch, bytes) else str(arch)
+    check(arch == "dense", f"detector_v3_128 is {arch}, not dense")
+    cfg = td.CurriculumConfig(input_size=128, batch_size=64, steps=SYNTH_STEPS, lr=7e-4, arch="dense",
+                              max_faces=2, ranges="v4", prefetch_threads=4)
+    timings: dict = {}
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    variables, history = td.train_detector_curriculum(cfg, log_every=25, init_variables=init,
+                                                      timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(c.count == 0 for c in counters.values()), "a port kernel launched inside the train steps")
+    check(all(np.isfinite(h["loss"]) for h in history), f"non-finite curriculum loss {history}")
+    step_ms = [a.elapsed_time(b) for a, b in timings["events"]]
+    waits = timings["wait_s"]
+    line: dict = {"card": card, "steps": SYNTH_STEPS, "steps_full_recipe": 4000, "wall_s": wall,
+                  "steps_per_s": SYNTH_STEPS / wall,
+                  "step_ms_median": statistics.median(step_ms), "step_ms_p90": float(np.percentile(step_ms, 90)),
+                  "queue_wait_ms_mean": float(np.mean(waits)) * 1e3,
+                  "queue_wait_ms_median": statistics.median(waits) * 1e3,
+                  "loss_history": history}
+
+    # The device's work in one step, on a fixed batch, against the wall
+    # time a step took in the run.
+    net = td.init_detector_net("dense", 0)
+    from facerecognition_tpu_torch.convert import load_flax_variables
+
+    load_flax_variables(net, variables)
+    net = net.cuda().train()
+    state = td.detector_train_state(net, lambda count: 1e-7)
+    step = td.make_detector_train_step(net, torch.as_tensor(anchor_centers(128), device="cuda"))
+    imgs, gb, gl, gv = sf.scene_batch(np.random.default_rng(SEED + 32), 64, 128, 2, ranges=sf.RANGES_V4)
+    batch = (td.normalize_u8(torch.from_numpy(imgs.astype(np.uint8)).cuda()), torch.from_numpy(gb).cuda(),
+             torch.from_numpy(gl).cuda(), torch.from_numpy(gv).cuda())
+    line["isolated_step_ms"] = cuda_ms(lambda: step(state, *batch), 10, 3)
+    events = profile_kernels(lambda: step(state, *batch), calls=3)
+    device_ms = sum(us for _, us in events.values()) / 1e3
+    line["device_ms_per_step"] = device_ms
+    line["busy_share"] = device_ms / (wall / SYNTH_STEPS * 1e3)
+    line["busy_share_isolated"] = device_ms / line["isolated_step_ms"]
+    state = step = net = batch = None
+
+    path = os.path.join(tmp, "detector_v4_port.msgpack")
+    save_variables(path, {"params": variables["params"], "arch": "dense"})
+    det = FaceDetector(weights=path, confidence_threshold=0.3)
+    counters = reset_counters()
+    a, b = td.fit_score_calibration(det, n_scenes=SYNTH_CAL_SCENES, ranges=sf.SCENE_RANGES["v4"])
+    line["calibration"] = {"a": a, "b": b, "detect_post_launches": counters["detect_post"].count}
+    check(counters["detect_post"].count == SYNTH_CAL_SCENES, "calibration did not detect once a scene")
+    check(np.isfinite(a) and np.isfinite(b), f"calibration ({a}, {b})")
+    save_variables(path, {"params": variables["params"], "arch": "dense", "calibration": {"a": a, "b": b}})
+    trained = FaceDetector(weights=path, confidence_threshold=0.5)
+    start = FaceDetector(weights="assets/detector_v3_128.msgpack", confidence_threshold=0.5)
+    line["eval"] = {}
+    launches = 0
+    for r in ("v3", "v4"):
+        kw = dict(n_scenes=SYNTH_EVAL_SCENES, seed=778, ranges=sf.SCENE_RANGES[r])
+        counters = reset_counters()
+        got = td.evaluate_detector(trained, **kw)
+        launches += counters["detect_post"].count
+        base = td.evaluate_detector(start, **kw)
+        check(got["recall"] >= base["recall"] - SYNTH_RECALL_TOL,
+              f"curriculum recall on {r}: {got['recall']} against the warm start's {base['recall']}")
+        line["eval"][r] = {"trained": got, "warm_start": base}
+    line["eval_detect_post_launches"] = launches
+    print("synth curriculum", json.dumps(line), flush=True)
+    return line
+
+
+def synthid_run(card: str, tmp: str) -> dict:
+    """``train_synthid`` at full width through ``main()``: 9,343 classes,
+    ``stage_sizes`` (1,1,1,1), 512-D, B 128, resident, one epoch, 2 train +
+    2 validation samples an id (1 + 2 when the measured render rate puts
+    the set over ``SYNTH_RENDER_BUDGET_S``; one validation sample leaves no
+    verification pairs). Render seconds, step ms and images/s, the final
+    retrieval metrics, ``warp_sample`` (matrix mode) once a step; then the
+    checkpoint ``main()`` wrote, in the port's ``RecognitionEngine``, names
+    each of 32 enrolled aligned samples top-1."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
+    from facerecognition_tpu_torch.training import synthetic_faces as sf
+    from facerecognition_tpu_torch.training import train_synthid as ts
+
+    line: dict = {"card": card, "n_ids": SYNTH_IDS}
+    t0 = time.perf_counter()
+    sf.identity_dataset(64, 4, seed=SEED + 40)
+    rate = 256 / (time.perf_counter() - t0)
+    train_per_id = 2 if SYNTH_IDS * 4 / rate <= SYNTH_RENDER_BUDGET_S else 1
+    line.update(samples_per_s_probe=rate, train_per_id=train_per_id, val_per_id=2)
+    cache = os.path.join(tmp, "synthid.npz")
+    args = ["--n-ids", str(SYNTH_IDS), "--train-per-id", str(train_per_id), "--val-per-id", "2",
+            "--batch-size", "128", "--epochs", "1", "--stage-sizes", "1,1,1,1", "--cache", cache,
+            "--out", os.path.join(tmp, "synthid.msgpack"), "--report", os.path.join(tmp, "synthid.json")]
+    config = ts.SynthIdConfig(n_ids=SYNTH_IDS, train_per_id=train_per_id, val_per_id=2, cache=cache)
+    t0 = time.perf_counter()
+    ts.load_or_render(config, log=lambda *_: None)
+    line["render_s"] = time.perf_counter() - t0
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    variables, history, final = ts.main(args)
+    torch.cuda.synchronize()
+    line["main_s"] = time.perf_counter() - t0
+    steps = SYNTH_IDS * train_per_id // 128
+    check(counters["warp_sample"].count == steps,
+          f"warp_sample launched {counters['warp_sample'].count} times in {steps} steps")
+    check(np.isfinite(history[0]["loss"]), f"synthid history {history}")
+    line.update(steps=steps, epoch_s=history[0]["sec"], epoch_ms_per_step=history[0]["sec"] / steps * 1e3,
+                loss=history[0]["loss"], train_acc=history[0]["train_acc"],
+                final={k: final[k] for k in ("top_1_accuracy", "top_5_accuracy", "auc", "eer")},
+                warp_sample_launches=counters["warp_sample"].count)
+
+    # The step alone: CUDA events over resident batches of the same set.
+    with np.load(cache) as z:
+        imgs, labels = z["imgs"], z["labels"]
+    tr_imgs, tr_labels, va_imgs, va_labels = ts.split_train_val(imgs, labels, config)
+    model = ts.build_model(config).cuda()
+    state = ts.TrainState(model, ts.build_tx(model, config, steps))
+    step = ts.make_resident_step(ts.make_step_with_aug(config, steps), tr_imgs.shape[1:])
+    data = torch.from_numpy(np.ascontiguousarray(tr_imgs.reshape(len(tr_imgs), -1))).cuda()
+    lab = torch.from_numpy(tr_labels.astype(np.int64)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 41)
+    line["step_ms"] = cuda_ms(
+        lambda: step(state, data, lab, torch.as_tensor(rng.integers(0, len(tr_imgs), 128), device="cuda"), gen),
+        8, 3)
+    line["images_per_s"] = 128 / line["step_ms"] * 1e3
+    state = model = data = step = None
+    torch.cuda.empty_cache()
+
+    embedder = load_arcface_model(os.path.join(tmp, "synthid.msgpack"))
+    check(embedder.model.stage_sizes == (1, 1, 1, 1), f"served stage sizes {embedder.model.stage_sizes}")
+    engine = RecognitionEngine(embedder, Gallery(512))
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    ids = np.arange(0, SYNTH_IDS, SYNTH_IDS // 32)[:32]
+    first = {int(i): int(np.flatnonzero(va_labels == i)[0]) for i in ids}
+    for i in ids:
+        check(engine.add_to_db(f"id{i}", [va_imgs[first[int(i)]]]), f"enrolling id{i} failed")
+    hits = 0
+    for i in ids:
+        out = engine.recognize(va_imgs[first[int(i)]], k=1)
+        hits += out["identity"] == f"id{i}"
+    check(hits == len(ids), f"the synthid checkpoint named {hits} of {len(ids)} enrolled samples top-1")
+    others = sum(engine.recognize(va_imgs[np.flatnonzero(va_labels == i)[1]], k=1)["identity"] == f"id{i}"
+                 for i in ids)
+    line["engine"] = {"enrolled": len(ids), "top1_enrolled": hits, "top1_second_sample": int(others)}
+    print("synth synthid", json.dumps(line), flush=True)
+    return line
+
+
+def synth_phase(card: str, device) -> dict:
+    """The procedural renderer and the two trainers on the card: the
+    renderer against the JAX fixture, the shipped v4 detector on the port's
+    scenes, the v4 detector curriculum from its warm start, and synthid
+    training at full width."""
+    import tempfile
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    out = {"renderer": timed("renderer", renderer_checks, card),
+           "shipped": timed("shipped_detector", shipped_detector_eval, card)}
+    with tempfile.TemporaryDirectory(prefix="synth-") as tmp:
+        out["curriculum"] = timed("curriculum", curriculum_run, card, tmp)
+        out["synthid"] = timed("synthid", synthid_run, card, tmp)
+    out["seconds"] = seconds
+    print("synth seconds", json.dumps(seconds), flush=True)
+    return out
+
+
+def phase_child(entry: str, result_path: str, card: str) -> int:
+    """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
+    written to ``result_path`` as JSON (the body of ``in_child``'s
+    process)."""
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
 
-    out = train_phase(card, torch.device("cuda", 0))
+    out = globals()[entry](card, torch.device("cuda", 0))
     with open(result_path, "w") as f:
         json.dump(out, f)
     faulthandler.cancel_dump_traceback_later()
     return 0
 
 
-def train_in_child(card: str) -> dict:
-    """The train phase in a process of its own, started here and waited
-    for: late in this process (after the serving and FaceNet phases) the
-    profiler's windows came back without any device event, and the phase
-    times its kernels by the profiler. Its lines print to this process's
+def in_child(entry: str, card: str) -> dict:
+    """A phase in a process of its own, started here and waited for: late
+    in this process (after the serving and FaceNet phases) the profiler's
+    windows came back without any device event, and the train and synth
+    phases time kernels by the profiler. Its lines print to this process's
     output; its counters are set to 0 and read in that process."""
     import os
     import tempfile
@@ -2883,13 +3219,13 @@ def train_in_child(card: str) -> dict:
     import torch
 
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # the child trains a ResNet50 at B = 128
-    with tempfile.TemporaryDirectory(prefix="train-child-") as tmp:
-        path = os.path.join(tmp, "train.json")
-        code = f"import sys, chip_smoke; sys.exit(chip_smoke.train_child({path!r}, {card!r}))"
+    torch.cuda.empty_cache()  # the child trains on the whole card
+    with tempfile.TemporaryDirectory(prefix=f"{entry}-child-") as tmp:
+        path = os.path.join(tmp, "result.json")
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.phase_child({entry!r}, {path!r}, {card!r}))"
         proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
                               timeout=WATCHDOG_S)
-        check(proc.returncode == 0, f"the train phase's process exited with {proc.returncode}")
+        check(proc.returncode == 0, f"the {entry} process exited with {proc.returncode}")
         with open(path) as f:
             return json.load(f)
 
@@ -2975,7 +3311,10 @@ def main() -> int:
         apps = apps_phase(smi)
 
     with phase("train"):
-        train = train_in_child(smi)
+        train = in_child("train_phase", smi)
+
+    with phase("synth"):
+        synth = in_child("synth_phase", smi)
 
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
@@ -3031,6 +3370,7 @@ def main() -> int:
             "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
             "replaces": "facerecognition_tpu/ops/warp_mxu.py:57",
             "launches": train["arcface"]["launches"]["warp_sample"],
+            "synthid_launches": synth["synthid"]["warp_sample_launches"],
             "max_abs_err": max(line["max_abs_err"] for key, line in train["affine"].items()
                                if "/guard/" not in key),
             "ms": train["affine"]["arcface_u8/heavy/False"]["ms"],
@@ -3048,6 +3388,11 @@ def main() -> int:
             "source": "facerecognition_tpu_torch/csrc/detect_post.cu",
             "replaces": "facerecognition_tpu/models/detector_net.py:200",
             "launches": crowd["detect_post"],
+            "synth_launches": {
+                "shipped_eval": sum(synth["shipped"][r]["detect_post_launches"] for r in ("v3", "v4")),
+                "calibration": synth["curriculum"]["calibration"]["detect_post_launches"],
+                "curriculum_eval": synth["curriculum"]["eval_detect_post_launches"],
+            },
             "max_abs_err": max(line["max_abs_err"] for line in detect.values()),
             "ms": post["ms"],
             "plain_ms": post["plain_ms"],
@@ -3134,6 +3479,14 @@ def main() -> int:
         "arcface": {k: train["arcface"][k] for k in ("setup_s", "train_s", "launches", "served_faces")},
         "facenet": {k: train["facenet"][k] for k in ("train_s", "launches", "batch_hard", "remat")},
         "parity": train["parity"], "heavy_augment": train["heavy"], "times": train["times"],
+    }), flush=True)
+    print("synth", json.dumps({
+        "renderer": {k: synth["renderer"][k] for k in ("scenes_per_s_1_thread", "scenes_per_s_4_threads",
+                                                       "jpeg_decode_ms_per_scene", "fixture")},
+        "curriculum": {k: synth["curriculum"][k] for k in ("step_ms_median", "busy_share",
+                                                           "queue_wait_ms_mean", "steps_per_s")},
+        "synthid": {k: synth["synthid"][k] for k in ("render_s", "step_ms", "images_per_s", "final")},
+        "seconds": synth["seconds"],
     }), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,7 +29,9 @@ F32 = np.float32
 def _cosine(init_value: float, decay_steps: int, alpha: float) -> Callable[[int], F32]:
     def schedule(count: int) -> F32:
         c = F32(min(count, decay_steps))
-        cosine = np.cos(F32(math.pi) * c / F32(decay_steps))
+        # The float32 argument's cosine rounded once from float64: nearer
+        # XLA's float32 cos than numpy's float32 one (within an ulp of it).
+        cosine = F32(np.cos(np.float64(F32(math.pi) * c / F32(decay_steps))))
         decayed = F32(1 - alpha) * (F32(0.5) * (F32(1) + cosine)) + F32(alpha)
         return F32(init_value) * decayed
 
@@ -51,6 +53,24 @@ def _linear(init_value: float, end_value: float, transition_steps: int):
         c = min(max(count, 0), transition_steps)
         frac = F32(1) - F32(c) / F32(transition_steps)
         return F32(init_value - end_value) * frac + F32(end_value)
+
+    return schedule
+
+
+def warmup_cosine_decay(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int, end_value: float = 0.0
+) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(init_value, peak_value,
+    warmup_steps, decay_steps, end_value)``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then cosine to ``end_value`` at
+    ``decay_steps``."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warm = _linear(init_value, peak_value, warmup_steps)
+    main = _cosine(peak_value, decay_steps - warmup_steps, alpha)
+
+    def schedule(count: int) -> float:
+        count = int(count)
+        return float(warm(count) if count < warmup_steps else main(count - warmup_steps))
 
     return schedule
 

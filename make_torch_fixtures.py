@@ -28,6 +28,16 @@ synthid9k embedders were trained on), one file of each kind: baseline JPEG
   identity and the SHA-256 of its pixels as libjpeg decodes them, and
   those pixels for every ``CLIP_PIXELS_EVERY``-th frame;
 
+- ``synthetic_scenes.npz`` and ``synthetic_scenes.json``: the procedural
+  renderer's output for a seeded set (v3 and v4 scenes, one
+  out-of-distribution scene per family and aligned identity samples,
+  their pixels, boxes, landmarks, ``valid`` and which
+  scenes took the JPEG step, and the generator state after each group;
+  the set is ``facerecognition_tpu_torch.tools.scene_fixture.SPEC``), and
+  the shipped ``detector_v4_128``'s ``evaluate_detector`` numbers on v3
+  and v4 scenes at ``SPEC["evaluate"]``'s seed: the reference the port's
+  renderer is held to on the card;
+
 and, under ``facerecognition_tpu_torch/apps/``, ``label_font.npz``: the
 bitmap glyphs of printable ASCII that the web app draws its labels with,
 rasterised from cv2's Hershey simplex font at scale 0.5, thickness 1.
@@ -164,8 +174,43 @@ def write_font() -> None:
                         width=np.int32(width))
 
 
+def write_synthetic() -> None:
+    """The renderer's fixture, rendered by the JAX package, and the shipped
+    v4 detector's evaluation numbers on its scenes."""
+    from facerecognition_tpu.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu.training import ood_faces, synthetic_faces
+    from facerecognition_tpu.training.train_detector import evaluate_detector
+    from facerecognition_tpu_torch.tools.scene_fixture import SPEC, render_set
+
+    jpeg_calls: list = []
+    cv2 = synthetic_faces.cv2
+    real_imencode = cv2.imencode
+
+    def imencode(*args, **kwargs):
+        jpeg_calls.append(1)
+        return real_imencode(*args, **kwargs)
+
+    cv2.imencode = imencode  # ood_faces shares the module
+    try:
+        arrays, states = render_set(synthetic_faces, ood_faces, SPEC, jpeg_calls)
+    finally:
+        cv2.imencode = real_imencode
+    np.savez_compressed(os.path.join(ROOT, "synthetic_scenes.npz"), **arrays)
+    ev = SPEC["evaluate"]
+    det = FaceDetector(weights=os.path.join(os.path.dirname(os.path.dirname(ROOT)), "assets",
+                                            "detector_v4_128.msgpack"))
+    evaluation = {
+        r: evaluate_detector(det, n_scenes=ev["n_scenes"], seed=ev["seed"], max_faces=ev["max_faces"],
+                             ranges=synthetic_faces.SCENE_RANGES[r])
+        for r in ev["ranges"]
+    }
+    with open(os.path.join(ROOT, "synthetic_scenes.json"), "w") as f:
+        json.dump({"spec": SPEC, "states": states, "detector_v4_128": evaluation}, f, indent=1)
+
+
 def main() -> None:
     write_clip(write_faces())
+    write_synthetic()
     write_font()
     total = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(ROOT) for n in ns)
     print(f"fixtures and font written; {total} bytes under {ROOT}")

@@ -135,22 +135,38 @@ def _entry_points():
     from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
     from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.training import train_detector as td
+    from facerecognition_tpu_torch.training import train_synthid as ts
 
     return {
         "FaceDetector": lambda: FaceDetector(),
         "Embedder": lambda: load_arcface_model(stage_sizes=(1, 1, 1, 1)),
         "Gallery": lambda: Gallery(16),
         "RecognitionEngine": lambda: RecognitionEngine(),
+        "train_detector_curriculum": lambda: td.train_detector_curriculum(
+            td.CurriculumConfig(input_size=64, batch_size=2, steps=1, prefetch_threads=1)
+        ),
+        "train_detector_synthetic": lambda: td.train_detector_synthetic(
+            td.DetectorTrainConfig(input_size=64, batch_size=2, steps=1)
+        ),
+        "train_synthid": lambda: ts.train_synthid(
+            ts.SynthIdConfig(n_ids=2, train_per_id=1, val_per_id=2, batch_size=2, epochs=1,
+                             stage_sizes=(1, 1, 1, 1)),
+            log=lambda *_: None,
+        ),
     }
 
 
-@pytest.mark.parametrize("entry", ["FaceDetector", "Embedder", "Gallery", "RecognitionEngine"])
+@pytest.mark.parametrize("entry", ["FaceDetector", "Embedder", "Gallery", "RecognitionEngine",
+                                   "train_detector_curriculum", "train_detector_synthetic",
+                                   "train_synthid"])
 def test_entry_points_default_to_the_card(entry):
     """No device argument means CUDA: without a card that raises, and asks
-    for device='cpu'; nothing moves to the CPU silently."""
+    for device='cpu'; nothing moves to the CPU silently. (A trainer returns
+    weights, not a device: on a card it has run there.)"""
     make = _entry_points()[entry]
     if torch.cuda.is_available():
-        assert make().device.type == "cuda"
+        assert getattr(make(), "device", torch.device("cuda")).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
