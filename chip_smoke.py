@@ -156,15 +156,40 @@ Phases, each printing its wall seconds:
     epoch (render seconds, step ms, images/s, retrieval metrics, one
     ``warp_sample`` a step); its checkpoint in a ``RecognitionEngine``
     names 32 enrolled aligned samples top-1.
+18. evals: the tools, the CelebA preprocessor and the evaluation drivers
+    (``evals_phase``, in a process of its own). ``utils/profiling.trace``
+    around one fused call (the trace names ``warp_sample`` and
+    ``topk_partial``); ``inspect_checkpoint`` on a shipped msgpack, an
+    exported ``.pth`` and a training checkpoint; ``create_label_map``;
+    ``visualize_logs``' overfit analysis (no matplotlib here: no plot).
+    ``CelebAPreprocessor.run``'s steps on a rendered CelebA-like set (32
+    identities, a ninth of the images without landmarks) on the card and on
+    the CPU: stats, CSVs and file names equal, aligned pixels within a level,
+    augmented within two, ``warp_sample`` launched and in the trace. The
+    ArcFace ultraslim and FaceNet msgpacks through ``scripts/export_torch``
+    to ``.pth`` and back through the loaders: embeddings within
+    ``EVALS_EXPORT_TOL``. The four evaluations at ``tools/eval_fixture.
+    SPEC``'s reduced sizes against the JAX package's numbers in
+    ``fixtures/evals.json`` (``eval_fixture.compare``: fails the run). Then
+    at the records' sizes: ``ood_eval`` (200 scenes x 6 families + control at
+    256², 100 embedder ids), ``int8_agreement`` (9,343 ids x 2, 1M rows;
+    ultraslim, then the record's slim checkpoint; top-1 agreement at least
+    ``EVALS_INT8_MIN_AGREEMENT`` %), ``lbph_scale_eval`` at 1,000 ids x (8 +
+    2) on ``render_id_folders``, ``compare_all_models`` and
+    ``evaluate_model`` on 120 ids x 12 (seed 1, ``stream``), and
+    ``facenet_ab_eval`` on its first 500 images (``docs/COMPARISON.md``'s
+    seed-1 A/B): each beside its record with the delta, a delta beyond
+    ``EVALS_DELTA`` listed as a finding; each path's kernels must launch.
 
-Phases 7-17 are the paths: every kernel counter is set to 0 just before
+Phases 7-18 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
 device does not cover). It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit code
 is not 0; without a CUDA card it exits 2 before printing any result. A
-watchdog ends the run, with a stack dump, after 900 s.
+watchdog ends the run, with a stack dump, after ``MAIN_WATCHDOG_S`` (each
+child process after ``WATCHDOG_S``).
 """
 
 from __future__ import annotations
@@ -179,7 +204,8 @@ import sys
 import threading
 import time
 
-WATCHDOG_S = 900
+WATCHDOG_S = 900  # a child phase's process
+MAIN_WATCHDOG_S = 1150  # the whole run, under the 1200 s the script has
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet, dense). The kernel's bound
 # is the larger of its bytes over the memory rate and its operations over
@@ -3193,6 +3219,363 @@ def synth_phase(card: str, device) -> dict:
     return out
 
 
+EVALS_INT8_IDS = 9_343  # the record's identities (docs/INT8_AGREEMENT.json)
+EVALS_INT8_ROWS = 1_000_000  # its --extend-to
+EVALS_INT8_MIN_AGREEMENT = 99.9  # % of probes whose top-1 stream_topk and int8_topk agree on
+EVALS_LBPH_IDS = 1_000  # the script's default (the record's 9,343 would take ~225 s to render)
+EVALS_LBPH_RECORD_TOP1 = 0.165  # JAX at 1,000 ids (docs/COMPARISON.md, "LBPH at reference scale")
+EVALS_COMPARE = (120, 12, 160, 1)  # ids, renders, side, seed: docs/COMPARISON.md's set (seed 1 its A/B's)
+EVALS_OOD = (200, 100, 256)  # scenes a row (5 families + control), embedder ids, side (the records)
+EVALS_FACENET_AB = (500, 98.4)  # probes, top-1 %: docs/COMPARISON.md's A/B of the shipped FaceNet, seed 1
+EVALS_DELTA = {"recall": 0.02, "top1_pp": 1.0, "lbph_pp": 2.0}  # a larger delta is written down
+EVALS_EXPORT_TOL = 1e-5  # embeddings from the exported .pth against the msgpack's (the same weights)
+EVALS_CELEBA_IDS = 32
+
+
+def evals_tools(card: str, tmp: str) -> dict:
+    """The host tools on the card machine: ``utils/profiling.trace`` around
+    one fused engine call (a non-empty trace that names the port's
+    kernels), ``inspect_checkpoint`` on a shipped msgpack, an exported
+    ``.pth`` and a training checkpoint, ``create_label_map`` and
+    ``visualize_logs`` (no plot: matplotlib is not on this machine)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.inference.engine import RecognitionEngine
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.scripts import create_label_map, export_torch, inspect_checkpoint
+    from facerecognition_tpu_torch.scripts import visualize_logs
+    from facerecognition_tpu_torch.training.checkpoint import CheckpointManager
+    from facerecognition_tpu_torch.utils import profiling
+
+    line: dict = {"card": card}
+    engine = RecognitionEngine(detector=FaceDetector(), checkpoint_path="assets/arcface_synthid9k_ultraslim_512.msgpack",
+                               match_kernel="stream")
+    rows = np.random.default_rng(SEED).standard_normal((64, 512)).astype(np.float32)
+    engine.gallery.add_many([f"id{i}" for i in range(64)], rows)
+    frames = smooth_frames(np.random.default_rng(SEED + 1), 8, 256)
+    engine.fused_recognize_frames(frames)  # warm
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir):
+        engine.fused_recognize_frames(frames)
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        text = f.read()
+    names = [k for k in ("warp_sample", "topk_partial", "split_queries", "topk_merge") if k in text]
+    check(len(text) > 1000 and "warp_sample" in names and "topk_partial" in names,
+          f"the trace ({len(text)} bytes) names {names}")
+    line["trace"] = {"bytes": len(text), "kernels_named": names}
+
+    shipped = inspect_checkpoint.inspect("assets/detector_v4_128.msgpack")
+    pth = os.path.join(tmp, "arcface.pth")
+    export_torch.main(["--model", "arcface", "--ckpt", "assets/arcface_synthid9k_ultraslim_512.msgpack",
+                       "--out", pth])
+    exported = inspect_checkpoint.inspect(pth)
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+    mgr.save("last", {"model": engine.embedder.model.state_dict(), "step": 3}, {"epoch": 1})
+    trained = inspect_checkpoint.inspect(os.path.join(tmp, "ckpt", "ckpt_last"))
+    n_model = sum(p.numel() for p in engine.embedder.model.parameters())
+    n_buffers = sum(b.numel() for n, b in engine.embedder.model.named_buffers() if b.ndim)
+    check(trained["n_params"] == n_model + n_buffers and exported["n_params"] == n_model + n_buffers
+          and shipped["n_params"] > 0,
+          f"inspect_checkpoint counts {shipped['n_params']} / {exported['n_params']} / {trained['n_params']}")
+    line["inspect"] = {"shipped": shipped["n_params"], "pth": exported["n_params"],
+                       "training_checkpoint": trained["n_params"]}
+
+    import pandas as pd
+
+    csv = os.path.join(tmp, "map.csv")
+    pd.DataFrame({"identity_id": ["a", "b"], "label": [0, 1]}).to_csv(csv, index=False)
+    check(create_label_map.create_label_map(csv, output_path=os.path.join(tmp, "lm.npy")) == {0: "a", 1: "b"},
+          "create_label_map from a CSV")
+    hist = [{"epoch": i, "train_loss": 1.0 - i * 0.05, "ver_acc": 0.5 + (i if i < 10 else 20 - i) * 0.02}
+            for i in range(20)]
+    with open(os.path.join(tmp, "h.json"), "w") as f:
+        json.dump(hist, f)
+    overfit = visualize_logs.analyze_overfit(visualize_logs.merge_histories([os.path.join(tmp, "h.json")]))
+    check(overfit["overfitting"] is True and overfit["best_epoch"] == 10, f"analyze_overfit gave {overfit}")
+    line["visualize_logs"] = "overfit analysis only: no matplotlib on this machine, plot_history skipped"
+    del engine
+    torch.cuda.empty_cache()
+    print("evals tools", json.dumps(line), flush=True)
+    return line
+
+
+def celeba_metadata(root: str) -> None:
+    """A CelebA-like set: ``EVALS_CELEBA_IDS`` identities of 3-8 one-face
+    scenes (JPEG, 160² or 192², so a batch is padded), the landmarks CSV
+    missing every ninth image."""
+    import os
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.training.synthetic_faces import render_scene
+    from facerecognition_tpu_torch.utils.imageio import encode_jpeg
+
+    rng = np.random.default_rng(SEED + 60)
+    img_dir = os.path.join(root, "img_align_celeba")
+    os.makedirs(img_dir)
+    idents, rows = [], []
+    for pid in range(EVALS_CELEBA_IDS):
+        for i in range(3 + pid % 6):
+            name = f"{pid:03d}{i:03d}.jpg"
+            img, _, lms, _ = render_scene(rng, 160 + 32 * (i % 2), 1, 1.0)
+            with open(os.path.join(img_dir, name), "wb") as f:
+                f.write(encode_jpeg(img, quality=90))
+            idents.append(f"{name} {pid + 1}")
+            if len(idents) % 9:
+                rows.append(",".join([name] + [f"{v:.0f}" for v in lms[0].reshape(-1)]))
+    with open(os.path.join(root, "identity_CelebA.txt"), "w") as f:
+        f.write("\n".join(idents) + "\n")
+    from facerecognition_tpu_torch.preprocessing.celeba import LANDMARK_COLUMNS
+
+    with open(os.path.join(root, "list_landmarks_align_celeba.csv"), "w") as f:
+        f.write(",".join(("image_id",) + LANDMARK_COLUMNS) + "\n" + "\n".join(rows) + "\n")
+
+
+def evals_celeba(card: str, tmp: str) -> dict:
+    """``CelebAPreprocessor`` on the card against the same run on the CPU:
+    kept identities, split membership, file names and CSVs equal; aligned
+    pixels within a level and augmented within two (``warp_sample`` within
+    1e-3 of its plain version, then truncated to uint8); ``warp_sample``
+    launched and named in the trace; the written JPEGs' largest pixel
+    difference reported."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from facerecognition_tpu_torch.data.native_decode import decode_file
+    from facerecognition_tpu_torch.preprocessing.celeba import CelebAConfig, CelebAPreprocessor
+    from facerecognition_tpu_torch.utils import profiling
+
+    data = os.path.join(tmp, "celeba")
+    celeba_metadata(data)
+    runs, line = {}, {"card": card}
+    for dev in ("cuda", "cpu"):
+        config = CelebAConfig(data_dir=data, output_dir=os.path.join(tmp, f"out_{dev}"), min_images=5,
+                              target_min_images=8, batch_size=32)
+        pre = CelebAPreprocessor(config, device=dev)
+        pre.load_metadata()
+        pre.analyze_and_filter()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            trace_dir = os.path.join(tmp, "celeba_trace")
+            with profiling.trace(trace_dir):
+                aligned = pre.align_all()
+            with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+                check("warp_sample" in f.read(), "the alignment's trace names no warp_sample kernel")
+        else:
+            aligned = pre.align_all()
+        snapshot = {p: [a.copy() for a in v] for p, v in aligned.items()}
+        augmented = pre.augment_to_target(aligned)
+        pre.split_and_write(augmented)
+        runs[dev] = {"aligned": snapshot, "augmented": augmented, "stats": pre.stats, "config": config,
+                     "warp_launches": counters["warp_sample"].count, "s": time.perf_counter() - t0}
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    check(card_run["warp_launches"] > 0, "CelebAPreprocessor launched no warp_sample on the card")
+    check(card_run["stats"] == cpu_run["stats"], f"stats {card_run['stats']} != {cpu_run['stats']}")
+    worst = {"aligned": 0, "augmented": 0}
+    for key in worst:
+        for pid, imgs in card_run[key].items():
+            check(len(imgs) == len(cpu_run[key][pid]), f"{key} {pid}: {len(imgs)} images")
+            for a, b in zip(imgs, cpu_run[key][pid]):
+                worst[key] = max(worst[key], int(np.abs(a.astype(int) - b).max()))
+    # aligned: the kernel within 1e-3 of its plain version, truncated to
+    # uint8; augmented: from those sources, contrast up to 1.2x
+    check(worst["aligned"] <= 1 and worst["augmented"] <= 2, f"card against CPU, levels: {worst}")
+    jpeg_worst = 0
+    for split in ("train", "val", "test"):
+        frames = [pd.read_csv(os.path.join(r["config"].output_dir, "metadata", f"{split}_labels.csv"))
+                  for r in (card_run, cpu_run)]
+        rel = [[os.path.relpath(p, r["config"].output_dir) for p in f["image_path"]]
+               for f, r in zip(frames, (card_run, cpu_run))]
+        check(rel[0] == rel[1] and frames[0]["label"].tolist() == frames[1]["label"].tolist(),
+              f"{split}_labels.csv differs between the card and the CPU")
+        for p in rel[0]:
+            a, b = (decode_file(os.path.join(r["config"].output_dir, p)) for r in (card_run, cpu_run))
+            jpeg_worst = max(jpeg_worst, int(np.abs(a.astype(int) - b).max()))
+    line.update({"stats": card_run["stats"], "max_abs_levels": worst, "jpeg_max_abs": jpeg_worst,
+                 "warp_sample_launches": card_run["warp_launches"], "card_s": card_run["s"],
+                 "cpu_s": cpu_run["s"]})
+    print("evals celeba", json.dumps(line), flush=True)
+    return line
+
+
+def evals_export(card: str, tmp: str) -> dict:
+    """The serving msgpack → a reference ``.pth`` (``scripts/export_torch``)
+    → the port's loader: ArcFace ultraslim and FaceNet (``--prefix
+    model.``), embeddings on the card within ``EVALS_EXPORT_TOL``."""
+    import os
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.inference import extract_embeddings as ee
+    from facerecognition_tpu_torch.scripts import export_torch
+
+    line: dict = {"card": card}
+    faces = smooth_frames(np.random.default_rng(SEED + 70), 16, 160).astype(np.float32)
+    for model, ckpt, load in (("arcface", "assets/arcface_synthid9k_ultraslim_512.msgpack", ee.load_arcface_model),
+                              ("facenet", "assets/" + FACENET_WEIGHTS, ee.load_facenet_model)):
+        pth = os.path.join(tmp, f"{model}.pth")
+        export_torch.main(["--model", model, "--ckpt", ckpt, "--out", pth, "--prefix", "model."])
+        a, b = (load(p).embed_uint8(faces) for p in (ckpt, pth))
+        err = float(np.abs(a - b).max())
+        check(err <= EVALS_EXPORT_TOL, f"{model}: the exported .pth's embeddings are {err} off")
+        line[model] = {"max_abs_err": err, "pth_mb": os.path.getsize(pth) / 1e6}
+        os.remove(pth)
+    print("evals export", json.dumps(line), flush=True)
+    return line
+
+
+def _record(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def evals_full(card: str, tmp: str) -> dict:
+    """The four evaluations at the records' sizes, each path's launches
+    read, the accuracy beside the record's value with the delta; a delta
+    beyond ``EVALS_DELTA`` is listed in ``findings`` (the gate is the
+    reduced-size fixture)."""
+    import os
+
+    import numpy as np
+
+    from facerecognition_tpu_torch.examples import compare_all_models, evaluate_model
+    from facerecognition_tpu_torch.scripts.facenet_ab_eval import facenet_ab
+    from facerecognition_tpu_torch.scripts.int8_agreement import (
+        distractor_draws,
+        int8_report,
+        render_and_embed,
+    )
+    from facerecognition_tpu_torch.scripts.lbph_scale_eval import lbph_scale_report
+    from facerecognition_tpu_torch.scripts.ood_eval import ood_report
+    from facerecognition_tpu_torch.scripts.render_id_folders import render_id_folders
+    from facerecognition_tpu_torch.training.ood_faces import OOD_FAMILIES
+
+    out: dict = {"card": card, "seconds": {}, "launches": {}, "findings": []}
+    quiet = lambda *_: None  # noqa: E731
+
+    def run(name, fn):
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        result = fn()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {k: c.count for k, c in counters.items()}
+        return result
+
+    def delta(name, ours, record, limit):
+        d = ours - record
+        out.setdefault("accuracy", {})[name] = {"port": ours, "record": record, "delta": round(d, 6)}
+        if abs(d) > limit:
+            out["findings"].append(f"{name}: {ours} against the record's {record}")
+
+    scenes, ids, side = EVALS_OOD
+    ood = run("ood", lambda: ood_report(scenes, ids, side, "assets/detector_v4_128.msgpack", log=quiet))
+    rec = _record("docs/OOD_EVAL_detector_v4_128.json")["detector"]
+    for family, row in ood["detector"].items():
+        delta(f"ood.{family}.recall", row["recall@iou0.5"], rec[family]["recall@iou0.5"], EVALS_DELTA["recall"])
+    emb = _record("docs/OOD_EVAL.json")["embedder_ood_appearance"]
+    delta("ood.embedder.top1_pp", 100 * ood["embedder_ood_appearance"]["top1"], 100 * emb["top1"],
+          EVALS_DELTA["top1_pp"])
+    check(out["launches"]["ood"]["detect_post"] == scenes * (len(OOD_FAMILIES) + 1), f"ood: {out['launches']['ood']}")
+
+    rec = _record("docs/INT8_AGREEMENT.json")
+    out["int8"] = {}
+    images = None
+    draws = run("int8_draws", lambda: distractor_draws(EVALS_INT8_IDS, EVALS_INT8_ROWS - EVALS_INT8_IDS, 512,
+                                                       np.random.default_rng(0 + 1)))  # seed 0, the script's + 1
+    for ckpt in ("assets/arcface_synthid9k_ultraslim_512.msgpack", "assets/arcface_synthid9k_slim_512.msgpack"):
+        name = os.path.basename(ckpt).split("_")[2]
+        embedded = run(f"int8_{name}_embed", lambda: render_and_embed(EVALS_INT8_IDS, 0, ckpt, 512, None,
+                                                                      log=quiet, images=images))
+        images = embedded.pop("images")
+        rep = run(f"int8_{name}", lambda: int8_report(EVALS_INT8_IDS, EVALS_INT8_ROWS, 512, 0, embedded=embedded,
+                                                      draws=draws, log=quiet))
+        launches = out["launches"][f"int8_{name}"]
+        check(launches["stream_topk"] > 0 and launches["int8_topk"] > 0, f"int8 {name}: {launches}")
+        out["int8"][name] = {"render_s": embedded["render_s"], "embed_s": embedded["embed_s"],
+                             "checkpoint": embedded["checkpoint"], "report": rep}
+        for gallery in ("real_9k", "capacity_1m"):
+            check(rep[gallery]["top1_agreement_pct"] >= EVALS_INT8_MIN_AGREEMENT,
+                  f"int8 {name} {gallery}: agreement {rep[gallery]['top1_agreement_pct']}%")
+            if name == "slim":  # the record's checkpoint
+                for key in ("top1_agreement_pct", "f32_top1_correct_pct", "int8_top1_correct_pct"):
+                    delta(f"int8.{gallery}.{key}", rep[gallery][key], rec[gallery][key], EVALS_DELTA["top1_pp"])
+    del images, draws
+
+    lbph_dir = os.path.join(tmp, "lbph_ids")
+    rendered = run("lbph_render", lambda: render_id_folders(lbph_dir, EVALS_LBPH_IDS, 10, 160, 0, log=None))
+    lbph = run("lbph", lambda: lbph_scale_report(lbph_dir, EVALS_LBPH_IDS, 8, 2, 100, log=quiet))
+    check(out["launches"]["lbph"]["lbph_hist"] > 0 and out["launches"]["lbph"]["chi2_nn"] > 0,
+          f"lbph: {out['launches']['lbph']}")
+    out["lbph"] = {"render": rendered, "report": lbph}
+    delta("lbph.top1_pp_1000_ids", 100 * lbph["top1"], 100 * EVALS_LBPH_RECORD_TOP1, EVALS_DELTA["lbph_pp"])
+
+    n_ids, per_id, size, seed = EVALS_COMPARE
+    cmp_dir = os.path.join(tmp, "compare_ids")
+    rendered = run("compare_render", lambda: render_id_folders(cmp_dir, n_ids, per_id, size, seed, log=None))
+    rows = run("compare", lambda: compare_all_models.compare_models(cmp_dir, max_images=n_ids * per_id,
+                                                                     match_kernel="stream"))
+    launches = out["launches"]["compare"]
+    check(all(launches[k] > 0 for k in ("stream_topk", "lbph_hist", "chi2_nn")), f"compare: {launches}")
+    rec = _record("docs/COMPARISON.json")
+    for model, row in rows.items():
+        for key in ("accuracy", "f1_macro"):
+            delta(f"compare.{model}.{key}_pp", 100 * row[key], 100 * rec[model][key],
+                  EVALS_DELTA["lbph_pp" if model == "lbph" else "top1_pp"])
+    out["compare"] = {"render": rendered, "rows": rows}
+    probes, record = EVALS_FACENET_AB
+    ab = run("facenet_ab", lambda: facenet_ab(["assets/facenet_synthid9k_512.msgpack"], cmp_dir, probes))
+    out["facenet_ab"] = ab = ab["facenet_synthid9k_512.msgpack"]
+    check(ab["n"] == probes, f"facenet_ab over {ab['n']} images")
+    delta(f"facenet_ab.top1_pp_{probes}", 100 * ab["top1"], record, EVALS_DELTA["top1_pp"])
+    results = run("evaluate", lambda: evaluate_model.evaluate_model(
+        cmp_dir, checkpoint="assets/arcface_synthid9k_ultraslim_512.msgpack",
+        output_dir=os.path.join(tmp, "eval_out"), match_kernel="stream", plots=False))
+    check(out["launches"]["evaluate"]["stream_topk"] > 0, f"evaluate: {out['launches']['evaluate']}")
+    out["evaluate"] = {k: results[k] for k in ("top_1_accuracy", "top_5_accuracy") if k in results}
+    print("evals full", json.dumps({k: out[k] for k in ("seconds", "launches", "findings", "accuracy")}),
+          flush=True)
+    return out
+
+
+def evals_phase(card: str, device) -> dict:
+    """The tools, the CelebA preprocessor, the export round trip, the
+    reduced-size evaluations against the JAX fixture (gate i), and the four
+    evaluations at the records' sizes (the int8 agreement's gate ii)."""
+    import tempfile
+
+    from facerecognition_tpu_torch.tools import eval_fixture
+
+    seconds, out = {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="evals-") as tmp:
+        timed("tools", evals_tools, card, tmp)
+        timed("celeba", evals_celeba, card, tmp)
+        timed("export", evals_export, card, tmp)
+        t0 = time.perf_counter()
+        counters = reset_counters()
+        reduced = eval_fixture.run_reduced(device)
+        seconds["reduced"] = time.perf_counter() - t0
+        fails, deltas = eval_fixture.compare(eval_fixture.load(), reduced)
+        out["reduced"] = {"deltas": deltas, "launches": {k: c.count for k, c in counters.items()}}
+        print("evals reduced", json.dumps({"card": card, "failures": fails, **out["reduced"]}), flush=True)
+        check(not fails, f"the reduced-size evaluations against the JAX fixture: {fails}")
+        timed("full", evals_full, card, tmp)
+    out["seconds"] = seconds
+    print("evals seconds", json.dumps(seconds), flush=True)
+    return out
+
+
 def phase_child(entry: str, result_path: str, card: str) -> int:
     """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
     written to ``result_path`` as JSON (the body of ``in_child``'s
@@ -3234,7 +3617,7 @@ T_START = time.perf_counter()
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    faulthandler.dump_traceback_later(MAIN_WATCHDOG_S, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -3315,6 +3698,12 @@ def main() -> int:
 
     with phase("synth"):
         synth = in_child("synth_phase", smi)
+
+    with phase("evals"):
+        evals = in_child("evals_phase", smi)
+    evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
+                      + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
+    evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
 
     post = detect[(DETECT_CASES[0][0], DETECT_CASES[0][3])]
     kernels = [
@@ -3488,6 +3877,14 @@ def main() -> int:
         "synthid": {k: synth["synthid"][k] for k in ("render_s", "step_ms", "images_per_s", "final")},
         "seconds": synth["seconds"],
     }), flush=True)
+    print("evals", json.dumps({
+        "celeba": {k: evals["celeba"][k] for k in ("stats", "max_abs_levels", "jpeg_max_abs")},
+        "export": evals["export"], "reduced_deltas": evals["reduced"]["deltas"],
+        "accuracy": evals["full"]["accuracy"], "findings": evals["full"]["findings"],
+        "launches": evals_launches, "seconds": {**evals["seconds"], **evals["full"]["seconds"]},
+    }), flush=True)
+    for entry in kernels:
+        entry["evals_launches"] = evals_launches[entry["name"]]
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -21,7 +21,15 @@ save_variables`` writes as a serving checkpoint both packages load.
 A reference torch checkpoint of FaceNet (``model.``/``backbone.``/
 ``module.`` prefixes, facenet-pytorch keys) needs no layout change:
 ``facenet_state_dict`` only moves its keys under the port's ``backbone.``,
-the counterpart of ``port_torch.facenet_wrapper_key_map``.
+the counterpart of ``port_torch.facenet_wrapper_key_map``. A reference
+ArcFace checkpoint (``backbone.<torchvision resnet50>``, ``bn1``, ``fc``,
+``bn2``, ``arcface.weight``) is already in torch's layouts too:
+``arcface_state_dict`` renames torchvision's blocks to the port's
+(``arcface_key_map``'s rules) and drops the heads.
+
+``export_arcface_state_dict`` and ``export_facenet_state_dict`` go the
+other way, from a serving checkpoint's flax variables to the reference
+layout (``port_torch.export_*``), for ``save_torch_checkpoint``.
 """
 
 from __future__ import annotations
@@ -166,6 +174,119 @@ def facenet_state_dict(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]
             out.setdefault(key[: -len("running_mean")] + "num_batches_tracked",
                            torch.tensor(0, dtype=torch.int64))
     return out
+
+
+def arcface_key(torch_key: str) -> Optional[str]:
+    """A reference ArcFace checkpoint key → the port's ``ArcFaceModel`` key,
+    or None to drop it (``port_torch.arcface_key_map``'s rules):
+    ``backbone.layer{s}.{b}.`` → ``backbone.layer{s}_{b}.``, its
+    ``downsample.0/1`` → ``downsample_conv/bn``; the backbone's ``fc``
+    classifier, the margin head ``arcface.weight`` and every
+    ``num_batches_tracked`` dropped; ``bn1``, ``fc``, ``bn2`` kept."""
+    if torch_key.endswith("num_batches_tracked") or torch_key.startswith("arcface."):
+        return None
+    if not torch_key.startswith("backbone."):
+        return torch_key
+    inner = torch_key[len("backbone."):]
+    if inner.startswith("fc."):
+        return None
+    m = re.fullmatch(r"layer(\d)\.(\d+)\.(.+)", inner)
+    if m:
+        stage, block, rest = m.groups()
+        rest = rest.replace("downsample.0.", "downsample_conv.").replace(
+            "downsample.1.", "downsample_bn.")
+        inner = f"layer{stage}_{block}.{rest}"
+    return f"backbone.{inner}"
+
+
+def arcface_state_dict(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A reference ArcFace state dict (torch layouts: no transposes) under
+    the port's keys, every batch norm's ``num_batches_tracked`` set to 0 so
+    ``strict`` loading works."""
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        name = arcface_key(key)
+        if name is not None:
+            out[name] = value if torch.is_tensor(value) else torch.as_tensor(np.asarray(value))
+    for key in list(out):
+        if key.endswith(".running_mean"):
+            out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return out
+
+
+def _export_state_dict(variables: Mapping, torch_module) -> dict[str, torch.Tensor]:
+    """Flax ``{'params', 'batch_stats'}`` → a reference-layout state dict
+    (``port_torch.export_state_dict``): HWIO → OIHW, Dense (I, O) → (O, I),
+    ``scale`` → ``weight``, ``mean``/``var`` → ``running_*`` with
+    ``num_batches_tracked`` 0; the margin head's ``weight`` as it is.
+    ``torch_module`` maps a flax module path ("a/b") to the reference's
+    dotted module name, or None to leave it out."""
+    out: dict[str, torch.Tensor] = {}
+
+    def put(name: str, value: np.ndarray) -> None:
+        out[name] = torch.from_numpy(np.array(value))
+
+    for path, value in _flatten(variables.get("params", {})):
+        module = torch_module("/".join(path[:-1]))
+        if module is None:
+            continue
+        leaf = path[-1]
+        if leaf == "kernel":
+            put(f"{module}.weight", value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T)
+        elif leaf == "scale":
+            put(f"{module}.weight", value)
+        else:  # bias, or the margin head's own weight
+            put(f"{module}.{leaf}", value)
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        module = torch_module("/".join(path[:-1]))
+        name = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
+        if module is None or name is None:
+            continue
+        put(f"{module}.{name}", value)
+        out.setdefault(f"{module}.num_batches_tracked", torch.tensor(0, dtype=torch.int64))
+    return out
+
+
+def _resnet_module(path: str) -> str:
+    """The port's ResNet module path → torchvision's dotted name."""
+    parts = []
+    for seg in path.split("/"):
+        seg = seg.replace("downsample_conv", "downsample.0").replace("downsample_bn", "downsample.1")
+        m = re.fullmatch(r"layer(\d)_(\d+)", seg)
+        parts.append(f"layer{m.group(1)}.{m.group(2)}" if m else seg)
+    return ".".join(parts)
+
+
+def export_arcface_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """ArcFace serving variables → the reference's state dict
+    (``backbone.<torchvision resnet>``, ``bn1``, ``fc``, ``bn2``, and
+    ``arcface.weight`` when the variables hold the head)."""
+    return _export_state_dict(
+        variables,
+        lambda p: "backbone." + _resnet_module(p[len("backbone/"):])
+        if p.startswith("backbone/") else p.replace("/", "."),
+    )
+
+
+def export_facenet_state_dict(variables: Mapping, prefix: str = "model.") -> dict[str, torch.Tensor]:
+    """FaceNet serving variables → the reference's state dict: the backbone
+    under ``prefix`` with facenet-pytorch's indexed children (``''`` for a
+    bare InceptionResnetV1), ``projection`` at the top."""
+
+    def module(path: str) -> str:
+        if path.startswith("backbone/"):
+            return prefix + flax_module_name(tuple(path[len("backbone/"):].split("/")))
+        return path.replace("/", ".")
+
+    return _export_state_dict(variables, module)
+
+
+def save_torch_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
+                          wrapper_key: str = "model_state_dict") -> None:
+    """Write a ``.pth`` the reference's loaders take: the tensors under
+    ``wrapper_key`` (its trainers' layout), or bare with ``wrapper_key=''``."""
+    tensors = {k: v.detach().cpu() for k, v in state_dict.items()}
+    torch.save({wrapper_key: tensors} if wrapper_key else tensors, path)
 
 
 def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:

@@ -472,6 +472,45 @@ bool decode_jpeg(const uint8_t *data, size_t size, Bytes *out, int *width, int *
   return true;
 }
 
+// libjpeg's JCS_GRAYSCALE output, what OpenCV's IMREAD_GRAYSCALE reads: the
+// Y plane of a YCbCr (or gray) JPEG as it is, upsampled only if Y is not at
+// the largest sampling; an RGB JPEG through libjpeg's rgb_gray_convert
+// (16-bit weights, rounded).
+bool decode_jpeg_gray(const uint8_t *data, size_t size, Bytes *out, int *width, int *height,
+                      std::string *error) {
+  JpegLayout layout;
+  if (!parse_jpeg(data, size, &layout)) {
+    *error = "JPEG: no frame header (corrupt or truncated file)";
+    return false;
+  }
+  if (layout.components == 4) {
+    *error = "JPEG: CMYK/YCCK JPEG is not supported";
+    return false;
+  }
+  Planes P;
+  if (!decode_jpeg_planes(data, size, layout, &P, error)) return false;
+  int max_h = 1, max_v = 1;
+  for (int c = 0; c < P.n; ++c) {
+    max_h = P.h[c] > max_h ? P.h[c] : max_h;
+    max_v = P.v[c] > max_v ? P.v[c] : max_v;
+  }
+  if (!P.rgb) {
+    if (!upsample(P, 0, max_h, max_v, out, error)) return false;
+  } else {
+    Bytes full[3];
+    for (int c = 0; c < 3; ++c)
+      if (!upsample(P, c, max_h, max_v, &full[c], error)) return false;
+    const size_t npx = static_cast<size_t>(P.width) * P.height;
+    out->resize(npx);
+    for (size_t i = 0; i < npx; ++i)
+      (*out)[i] = static_cast<uint8_t>(
+          (19595 * full[0][i] + 38470 * full[1][i] + 7471 * full[2][i] + 32768) >> 16);
+  }
+  *width = P.width;
+  *height = P.height;
+  return true;
+}
+
 // -- PNG ---------------------------------------------------------------------
 
 const uint8_t kPngSignature[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
@@ -827,6 +866,28 @@ int frt_decode_alloc(const uint8_t *data, long size, uint8_t **out, int *w, int 
     return -1;
   }
   memcpy(*out, rgb.data(), rgb.size());
+  return 1;
+}
+
+// frt_decode_alloc for JPEG bytes as one gray plane (w*h bytes):
+// decode_jpeg_gray, libjpeg's grayscale output.
+int frt_decode_jpeg_gray_alloc(const uint8_t *data, long size, uint8_t **out, int *w, int *h,
+                               char *err, int err_cap) {
+  Bytes gray;
+  std::string error;
+  *out = nullptr;
+  *w = *h = 0;
+  t_fault = false;
+  if (size <= 0 || !decode_jpeg_gray(data, static_cast<size_t>(size), &gray, w, h, &error)) {
+    set_error(error.empty() ? "empty file" : error, err, err_cap);
+    return t_fault ? -1 : 0;
+  }
+  *out = static_cast<uint8_t *>(malloc(gray.size()));
+  if (!*out) {
+    set_error("out of memory", err, err_cap);
+    return -1;
+  }
+  memcpy(*out, gray.data(), gray.size());
   return 1;
 }
 

@@ -1,7 +1,8 @@
 """Device-side augmentation: the five tiers as draws and their application.
 
 Counterpart of ``facerecognition_tpu/data/augment.py``'s ``augment_batch``,
-split in two so the draws can be given:
+split in two so the draws can be given (``augment_batch(generator, images,
+tier)`` is the one-call form):
 
 - ``augment_draws(generator, b, s, tier)`` draws, for each image, what
   ``augment_batch`` draws from ``jax.random``, with its distributions and
@@ -149,3 +150,14 @@ def apply_augment(images: torch.Tensor, draws: dict, tier: str) -> torch.Tensor:
         on = hole & draws["cutout_on"].to(dev)[:, None, None]
         imgs = torch.where(on[..., None], 127.5, imgs)
     return torch.clamp(imgs, 0.0, 255.0)
+
+
+def augment_batch(
+    generator: Optional[torch.Generator], images: torch.Tensor, tier: str = "normal"
+) -> torch.Tensor:
+    """Augment a (B, S, S, 3) batch in one call: the tier's draws from
+    ``generator`` (on its device; the global generator when None), then
+    ``apply_augment`` on the images' device. JAX's ``augment_batch(rng,
+    images, tier)`` with a ``torch.Generator`` for the key."""
+    draws = augment_draws(generator, images.shape[0], images.shape[1], tier)
+    return apply_augment(images, draws, tier)

@@ -49,6 +49,8 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int,
     ]
     lib.frt_decode_alloc.restype = ctypes.c_int
+    lib.frt_decode_jpeg_gray_alloc.argtypes = lib.frt_decode_alloc.argtypes
+    lib.frt_decode_jpeg_gray_alloc.restype = ctypes.c_int
     lib.frt_free.argtypes = [_U8P]
     lib.frt_free.restype = None
     lib.frt_decode_batch.argtypes = [
@@ -87,6 +89,30 @@ def sniff_format(data: bytes) -> str:
     return "unknown"
 
 
+def _decode(entry: str, data: bytes, channels: int, where: str) -> np.ndarray:
+    """One call of the library's ``entry`` (``frt_decode_alloc`` or
+    ``frt_decode_jpeg_gray_alloc``): (H, W, channels) uint8."""
+    lib = _lib()
+    src = np.frombuffer(data, np.uint8)
+    out = _U8P()
+    w, h = ctypes.c_int(0), ctypes.c_int(0)
+    err = ctypes.create_string_buffer(_ERR_CAP)
+    rc = getattr(lib, entry)(
+        src.ctypes.data_as(_U8P), len(data), ctypes.byref(out), ctypes.byref(w), ctypes.byref(h),
+        err, _ERR_CAP,
+    )
+    if rc < 0:
+        raise RuntimeError(f"{where}{err.value.decode(errors='replace')}")
+    if rc == 0:
+        raise OSError(f"{where}{err.value.decode(errors='replace')}")
+    try:
+        img = np.empty((h.value, w.value, channels), np.uint8)
+        ctypes.memmove(img.ctypes.data, out, img.nbytes)
+    finally:
+        lib.frt_free(out)
+    return img
+
+
 def decode_mem(data: bytes, name: Optional[str] = None) -> np.ndarray:
     """Decode JPEG/PNG bytes at their own size: (H, W, 3) uint8 RGB. Any
     other format, or a file the decoder refuses, raises ``OSError`` naming
@@ -96,26 +122,17 @@ def decode_mem(data: bytes, name: Optional[str] = None) -> np.ndarray:
     fmt = sniff_format(data)
     if fmt not in ("JPEG", "PNG"):
         raise OSError(f"{where}cannot decode {fmt} image data: the port reads JPEG and PNG")
-    lib = _lib()
-    src = np.frombuffer(data, np.uint8)
-    out = _U8P()
-    w, h = ctypes.c_int(0), ctypes.c_int(0)
-    err = ctypes.create_string_buffer(_ERR_CAP)
-    rc = lib.frt_decode_alloc(
-        src.ctypes.data_as(_U8P), len(data), ctypes.byref(out), ctypes.byref(w), ctypes.byref(h),
-        err, _ERR_CAP,
-    )
-    if rc < 0:
-        raise RuntimeError(f"{where}{err.value.decode(errors='replace')}")
-    if rc == 0:
-        raise OSError(f"{where}{err.value.decode(errors='replace')}")
-    try:
-        n = w.value * h.value * 3
-        img = np.empty((h.value, w.value, 3), np.uint8)
-        ctypes.memmove(img.ctypes.data, out, n)
-    finally:
-        lib.frt_free(out)
-    return img
+    return _decode("frt_decode_alloc", data, 3, where)
+
+
+def decode_jpeg_gray(data: bytes, name: Optional[str] = None) -> np.ndarray:
+    """JPEG bytes as libjpeg's grayscale output (what OpenCV's
+    ``IMREAD_GRAYSCALE`` reads): the Y plane as stored, (H, W) uint8; by
+    nvJPEG's IDCT where that is the backend. Errors as ``decode_mem``."""
+    where = f"{name}: " if name else ""
+    if sniff_format(data) != "JPEG":
+        raise OSError(f"{where}not JPEG data")
+    return _decode("frt_decode_jpeg_gray_alloc", data, 1, where)[..., 0]
 
 
 def decode_file(path) -> np.ndarray:

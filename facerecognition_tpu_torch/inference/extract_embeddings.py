@@ -18,12 +18,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from facerecognition_tpu_torch.convert import (
+    arcface_state_dict,
     facenet_state_dict,
     flax_to_state_dict,
     load_flax_variables,
@@ -135,12 +137,27 @@ def default_facenet_checkpoint() -> Optional[str]:
     return _first_shipped(DEFAULT_FACENET_CHECKPOINTS)
 
 
-def load_arcface_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> ArcFaceModel:
-    """An ArcFace model (on the CPU) with a msgpack checkpoint's weights.
+def resnet_stage_sizes(state: dict) -> tuple:
+    """Blocks per stage of the port's ResNet keys (``backbone.layer{s}_{b}.``)."""
+    blocks = {(int(m.group(1)), int(m.group(2)))
+              for m in (re.match(r"backbone\.layer(\d)_(\d+)\.", k) for k in state) if m}
+    return tuple(sum(1 for s, _ in blocks if s == stage) for stage in (1, 2, 3, 4))
 
-    The backbone depth rides in the checkpoint as ``stage_sizes`` (absent:
-    ResNet50's (3, 4, 6, 3)).
-    """
+
+def load_arcface_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> ArcFaceModel:
+    """An ArcFace model (on the CPU) with a checkpoint's weights: a flax
+    msgpack file, whose backbone depth rides in it as ``stage_sizes``
+    (absent: ResNet50's (3, 4, 6, 3)), or a reference torch ``.pth``/``.pt``
+    (``backbone.<torchvision resnet50>``, ``bn1``, ``fc``, ``bn2``; the
+    margin head dropped), whose depth is the number of blocks its keys
+    name in each stage: (3, 4, 6, 3) for the reference's ResNet50, as JAX
+    assumes; a slim export (``scripts/export_torch``) loads too, where the
+    JAX loader fails on the missing blocks."""
+    if checkpoint_path.endswith((".pth", ".pt")):
+        state = arcface_state_dict(load_torch_checkpoint(checkpoint_path))
+        model = ArcFaceModel(embedding_size, resnet_stage_sizes(state))
+        model.load_state_dict(state, strict=True)
+        return model
     variables = load_variables(checkpoint_path)
     raw = variables.pop("stage_sizes", None)
     stages = (3, 4, 6, 3) if raw is None else tuple(int(v) for v in np.asarray(raw))

@@ -26,6 +26,13 @@ from facerecognition_tpu_torch.ops.umeyama import (
     umeyama_batch,
 )
 
+#: The text of the ``NotImplementedError`` for JAX's ``fast="int8"`` mode
+#: (int8 weights and pixels − 128, int32 sums; ``warp_mxu.py:129-155``).
+INT8_MODE_NOT_PORTED = (
+    "only fast=False/True are ported: the int8 warp mode (fast='int8') is not; "
+    "no JAX engine uses it, and ROADMAP Queue 1 item 5 holds it"
+)
+
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
@@ -115,10 +122,7 @@ def affine_warp_mxu_batch(
       (B, out_h, out_w, C) float32.
     """
     if fast not in (True, False):
-        raise NotImplementedError(
-            "only fast=False/True are ported; the int8 warp mode waits for "
-            "the crowd path (ROADMAP Queue 1)"
-        )
+        raise NotImplementedError(INT8_MODE_NOT_PORTED)
     images = images.float()
     minv = invert_affine(ms.float())
     return torch.cat(

@@ -88,10 +88,7 @@ EMBEDDER_NORM = (_f32_reciprocal(255.0), 0.5, _f32_reciprocal(0.5))
 
 def _check_fast(fast) -> None:
     if fast not in (True, False):
-        raise NotImplementedError(
-            "only fast=False/True are ported; the int8 warp mode is not "
-            "(ROADMAP Queue 1)"
-        )
+        raise NotImplementedError(warp_mxu.INT8_MODE_NOT_PORTED)
 
 
 def _check_frames(frames: torch.Tensor) -> None:

@@ -51,6 +51,28 @@ def load_image(img_input: Union[str, "os.PathLike", bytes, np.ndarray, Any]) -> 
     )
 
 
+#: libpng's ``png_set_rgb_to_gray`` weights as OpenCV sets them (0.299,
+#: 0.587) in its 15-bit fixed point: red and green truncated, blue the rest.
+PNG_GRAY_WEIGHTS = (9797, 19234, 3737)
+
+
+def load_gray(path) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``: (H, W) uint8. A PNG is
+    converted as OpenCV has libpng do it, ``(9797 R + 19234 G + 3737 B) >>
+    15`` (gray files as they are), bit for bit. A JPEG is the Y plane as
+    stored (``native_decode.decode_jpeg_gray``), not a gray of the decoded
+    colours: bit for bit where the decoder's backend is libjpeg; where it
+    is nvJPEG, its IDCT's plane, which need not have libjpeg's bits."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if native_decode.sniff_format(data) == "JPEG":
+        return native_decode.decode_jpeg_gray(data, path)
+    rgb = native_decode.decode_mem(data, path).astype(np.int64)
+    wr, wg, wb = PNG_GRAY_WEIGHTS
+    return ((wr * rgb[..., 0] + wg * rgb[..., 1] + wb * rgb[..., 2]) >> 15).astype(np.uint8)
+
+
 def to_uint8(arr: np.ndarray) -> np.ndarray:
     """Clamp and convert an array to uint8 [0, 255]; floats whose maximum is
     at most 1 are taken as [0, 1] and scaled by 255 first."""

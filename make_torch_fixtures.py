@@ -38,6 +38,14 @@ synthid9k embedders were trained on), one file of each kind: baseline JPEG
   and v4 scenes at ``SPEC["evaluate"]``'s seed: the reference the port's
   renderer is held to on the card;
 
+- ``evals.json``: the JAX evaluations' reports at the reduced sizes and
+  seeds of ``facerecognition_tpu_torch.tools.eval_fixture.SPEC``
+  (``write_evals``: ``scripts/ood_eval.py`` with the shipped
+  ``detector_v4_128``, ``int8_agreement.py``, ``lbph_scale_eval.py`` and
+  ``examples/compare_all_models.py`` on folders of ``render_id_folders.py``,
+  each run as its own command line would run it); the port's drivers are
+  held to them on the card;
+
 and, under ``facerecognition_tpu_torch/apps/``, ``label_font.npz``: the
 bitmap glyphs of printable ASCII that the web app draws its labels with,
 rasterised from cv2's Hershey simplex font at scale 0.5, thickness 1.
@@ -208,9 +216,74 @@ def write_synthetic() -> None:
         json.dump({"spec": SPEC, "states": states, "detector_v4_128": evaluation}, f, indent=1)
 
 
+def _run_script(rel: str, argv: list) -> None:
+    """``python <rel> <argv>`` in this process: the top-level JAX scripts
+    are not a package, and their ``main()`` reads ``sys.argv``."""
+    import importlib.util
+    import sys
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3], os.path.join(repo, rel))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    saved = sys.argv
+    sys.argv = [rel] + [str(a) for a in argv]
+    try:
+        module.main()
+    finally:
+        sys.argv = saved
+
+
+def write_evals() -> None:
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from facerecognition_tpu_torch.tools.eval_fixture import FIXTURE, SPEC
+
+    o, i8, lb, cm = SPEC["ood"], SPEC["int8"], SPEC["lbph"], SPEC["compare"]
+    out = {"spec": SPEC}
+    with tempfile.TemporaryDirectory(prefix="evals-") as tmp:
+        path = os.path.join(tmp, "report.json")
+        _run_script("scripts/ood_eval.py", ["--scenes", o["scenes"], "--ids", o["ids"], "--size", o["size"],
+                                            "--weights", os.path.join("assets", o["weights"]), "--out", path])
+        with open(path) as f:
+            out["ood"] = json.load(f)
+        _run_script("scripts/int8_agreement.py", ["--ids", i8["ids"], "--extend-to", i8["extend_to"],
+                                                  "--seed", i8["seed"], "--batch", i8["batch"],
+                                                  "--cache", "", "--out", path])
+        with open(path) as f:
+            out["int8"] = json.load(f)
+        out["int8"]["checkpoint"] = os.path.basename(out["int8"]["checkpoint"])
+        del out["int8"]["protocol"]
+        d = os.path.join(tmp, "lbph")
+        _run_script("scripts/render_id_folders.py", ["--out", d, "--n-ids", lb["n_ids"], "--per-id",
+                                                     lb["train_per_id"] + lb["probe_per_id"],
+                                                     "--size", lb["render_size"], "--seed", lb["seed"]])
+        _run_script("scripts/lbph_scale_eval.py", ["--data-dir", d, "--n-ids", lb["n_ids"],
+                                                   "--train-per-id", lb["train_per_id"],
+                                                   "--probe-per-id", lb["probe_per_id"],
+                                                   "--image-size", lb["image_size"], "--out", path])
+        with open(path) as f:
+            out["lbph"] = {k: v for k, v in json.load(f).items()
+                           if k not in ("chi2_scan_qps", "probe_featurize_s", "train_s")}
+        d = os.path.join(tmp, "compare")
+        _run_script("scripts/render_id_folders.py", ["--out", d, "--n-ids", cm["n_ids"], "--per-id",
+                                                     cm["per_id"], "--size", cm["size"], "--seed", cm["seed"]])
+        _run_script("examples/compare_all_models.py", ["--data-dir", d, "--output", path,
+                                                       "--max-images", cm["n_ids"] * cm["per_id"]])
+        with open(path) as f:
+            out["compare"] = {m: {k: v for k, v in row.items() if k != "ms_per_face"}
+                              for m, row in json.load(f).items()}
+    with open(FIXTURE, "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def main() -> None:
     write_clip(write_faces())
     write_synthetic()
+    write_evals()
     write_font()
     total = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(ROOT) for n in ns)
     print(f"fixtures and font written; {total} bytes under {ROOT}")

@@ -131,12 +131,37 @@ def test_csrc_does_not_include_torch_headers():
         assert "torch/extension.h" not in src and "#include <torch" not in src, name
 
 
+#: The drivers (``scripts/``, ``examples/``, the CelebA CLI): their
+#: ``main`` given what each requires and no ``--device``.
+DRIVERS = {
+    "scripts.export_facenet": ["--out", "facenet.msgpack"],
+    "scripts.export_torch": ["--model", "arcface", "--ckpt", "a.msgpack", "--out", "a.pth"],
+    "scripts.train_detector_v3": ["--out", "det.msgpack"],
+    "scripts.train_detector_v4": ["--out", "det.msgpack"],
+    "scripts.finetune_detector_v3": ["--out", "det.msgpack"],
+    "scripts.ood_eval": ["--out", "ood.json"],
+    "scripts.int8_agreement": ["--out", "int8.json"],
+    "scripts.lbph_scale_eval": ["--data-dir", "ids", "--out", "lbph.json"],
+    "scripts.facenet_ab_eval": ["facenet.msgpack", "--data-dir", "ids"],
+    "examples.evaluate_model": ["--data-dir", "ids"],
+    "examples.compare_all_models": ["--data-dir", "ids"],
+    "preprocessing.celeba": ["celeba", "out"],
+}
+
+
 def _entry_points():
+    import importlib
+
     from facerecognition_tpu_torch.inference.engine import Gallery, RecognitionEngine
     from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
+    from facerecognition_tpu_torch.preprocessing.celeba import CelebAConfig, CelebAPreprocessor
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
     from facerecognition_tpu_torch.training import train_detector as td
     from facerecognition_tpu_torch.training import train_synthid as ts
+
+    def driver(name):
+        module = importlib.import_module(f"facerecognition_tpu_torch.{name}")
+        return lambda: module.main(DRIVERS[name])
 
     return {
         "FaceDetector": lambda: FaceDetector(),
@@ -154,22 +179,52 @@ def _entry_points():
                              stage_sizes=(1, 1, 1, 1)),
             log=lambda *_: None,
         ),
+        "CelebAPreprocessor": lambda: CelebAPreprocessor(CelebAConfig("celeba", "out")),
+        **{name: driver(name) for name in DRIVERS},
     }
 
 
 @pytest.mark.parametrize("entry", ["FaceDetector", "Embedder", "Gallery", "RecognitionEngine",
                                    "train_detector_curriculum", "train_detector_synthetic",
-                                   "train_synthid"])
+                                   "train_synthid", "CelebAPreprocessor", *DRIVERS])
 def test_entry_points_default_to_the_card(entry):
     """No device argument means CUDA: without a card that raises, and asks
     for device='cpu'; nothing moves to the CPU silently. (A trainer returns
-    weights, not a device: on a card it has run there.)"""
+    weights, not a device: on a card it has run there. A driver is given
+    names of files that do not exist: it must refuse before it reads one.)"""
     make = _entry_points()[entry]
     if torch.cuda.is_available():
+        if entry in DRIVERS:
+            pytest.skip("a driver on a card needs its data")
         assert getattr(make(), "device", torch.device("cuda")).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+@pytest.mark.parametrize("tool", ["scripts.create_label_map", "scripts.inspect_checkpoint",
+                                  "scripts.visualize_logs", "scripts.render_id_folders"])
+def test_host_tools_take_no_device(tool, tmp_path):
+    """The host tools read, render and write files and launch nothing: they
+    take no ``--device`` and run without a card."""
+    import importlib
+
+    if tool == "scripts.visualize_logs":
+        pytest.importorskip("matplotlib")
+    (tmp_path / "labels.csv").write_text("identity_id,label\nb,1\na,0\n")
+    (tmp_path / "history.json").write_text('[{"epoch": 0, "train_loss": 1.0}]')
+    args = {
+        "scripts.create_label_map": ["--csv", str(tmp_path / "labels.csv"), "--output",
+                                     str(tmp_path / "lm.npy")],
+        "scripts.inspect_checkpoint": [os.path.join(REPO, "assets", ASSETS[0])],
+        "scripts.visualize_logs": [str(tmp_path / "history.json"), "--output", str(tmp_path / "c.png")],
+        "scripts.render_id_folders": ["--out", str(tmp_path / "ids"), "--n-ids", "1", "--per-id", "1",
+                                      "--size", "64"],
+    }[tool]
+    main = importlib.import_module(f"facerecognition_tpu_torch.{tool}").main
+    with pytest.raises(SystemExit):
+        main(args + ["--device", "cpu"])
+    assert main(args)
 
 
 def test_find_nvcc_raises_without_toolkit(tmp_path, monkeypatch):
