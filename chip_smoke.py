@@ -126,7 +126,7 @@ Phases, each printing its wall seconds:
     tier's augmentation of one batch on the card against the CPU (1e-3
     levels, one warp); the miners' indices on the card against the CPU's
     with planted ties (argmin/argmax take the first index). ``ArcFaceTrainer`` from ``configs/arcface_config.
-    yaml`` over 1,024 x 4 generated 128² PNG faces: 2 epochs x 8 steps,
+    yaml`` over 1,024 x 4 generated 128² PNG faces: 2 epochs x 4 steps,
     resume("last") and a third epoch (checkpoint GC to keep_last_n = 2,
     history equal, one warp a step), the exported weights served by one
     fused ``RecognitionEngine`` call; ``FaceNetTrainer`` from
@@ -152,7 +152,7 @@ Phases, each printing its wall seconds:
     producers' queue wait, the loss; the checkpoint saved, calibrated on
     ``SYNTH_CAL_SCENES`` scenes, and its recall on v3 and v4 scenes within
     ``SYNTH_RECALL_TOL`` of the warm start's. ``train_synthid`` through
-    ``main()`` at 9,343 classes, (1,1,1,1), 512-D, B 128, resident, one
+    ``main()`` at ``SYNTH_IDS`` = 3,000 classes, (1,1,1,1), 512-D, B 128, resident, one
     epoch (render seconds, step ms, images/s, retrieval metrics, one
     ``warp_sample`` a step); its checkpoint in a ``RecognitionEngine``
     names 32 enrolled aligned samples top-1.
@@ -171,15 +171,40 @@ Phases, each printing its wall seconds:
     ``EVALS_EXPORT_TOL``. The four evaluations at ``tools/eval_fixture.
     SPEC``'s reduced sizes against the JAX package's numbers in
     ``fixtures/evals.json`` (``eval_fixture.compare``: fails the run). Then
-    at the records' sizes: ``ood_eval`` (200 scenes x 6 families + control at
-    256², 100 embedder ids), ``int8_agreement`` (9,343 ids x 2, 1M rows;
-    ultraslim, then the record's slim checkpoint; top-1 agreement at least
-    ``EVALS_INT8_MIN_AGREEMENT`` %), ``lbph_scale_eval`` at 1,000 ids x (8 +
+    at the records' sizes or below (the int8 and LBPH ones are cut below
+    theirs for the script's time; a record is compared at its own size only):
+    ``ood_eval`` (200 scenes x 6 families + control at
+    256², 100 embedder ids), ``int8_agreement`` (4,000 ids x 2, 1M rows;
+    the record's slim checkpoint; top-1 agreement at least
+    ``EVALS_INT8_MIN_AGREEMENT`` %), ``lbph_scale_eval`` at 400 ids x (8 +
     2) on ``render_id_folders``, ``compare_all_models`` and
     ``evaluate_model`` on 120 ids x 12 (seed 1, ``stream``), and
     ``facenet_ab_eval`` on its first 500 images (``docs/COMPARISON.md``'s
     seed-1 A/B): each beside its record with the delta, a delta beyond
     ``EVALS_DELTA`` listed as a finding; each path's kernels must launch.
+
+19. parallel: the last API slice and the multi-device layer
+    (``parallel_phase``, in a process of its own). The int8 warp mode
+    (``fast="int8"``) against its plain version bit for bit at the align
+    warp B 128, 256² → 112² and the window B 32 x M 4, timed;
+    ``detect_best_face_batch`` and ``align_crop_batch`` against the CPU port;
+    MobileFaceNet (512-D, 112², B 128, a seeded init) in evaluation and
+    training mode against the CPU port (cosine above 0.999, TF32 off), with
+    images/s of the forward and of a training step. A ``ShardedGallery`` of
+    1,000,003 x 512 rows cut into 4 shards on the one card, float32 and int8
+    (B 128, k 5), against one ``stream_topk`` / ``int8_topk`` over the whole
+    gallery (indices and scores equal, planted rows top-1), its call timed
+    beside the whole-gallery call's in turns. 2 ranks over gloo sharing the
+    card (``parallel.launch.spawn_ranks``): a 100,003-row 4-shard search, 2
+    shards a rank on the rank's kernels, equal to the single-process
+    result; a data-parallel ArcFace step (global batch norm, mixup pairs
+    across ranks) within 2e-3 of each tensor's scale of the one-process
+    step. ``train_arcface`` from ``configs/arcface_config.yaml`` on 9,343
+    generated identities, 2 steps with ``train.num_devices=auto``, under a
+    1-rank NCCL ``torchrun`` and without a group: the losses within 1e-3,
+    the checkpoints within 2e-3 of scale. The ArcFace step of phase 16 in a
+    1-rank NCCL group in the phase's process, data-parallel and one-card,
+    timed in turns.
 
 Phases 7-18 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
@@ -341,7 +366,7 @@ AFFINE_CASES = (("arcface_f32", 128, 112, "float32"), ("arcface_u8", 128, 112, "
                 ("facenet_u8", 32, 160, "uint8"))
 PARITY_ARC_B, PARITY_FN_PK = 16, (4, 2)
 TRAIN_IDENTITIES, TRAIN_SAMPLES, TRAIN_SIDE = 1_024, 4, 128
-TRAIN_ARC_STEPS, TRAIN_FN_STEPS = 8, 4
+TRAIN_ARC_STEPS, TRAIN_FN_STEPS = 4, 2  # cut from 8, 4 for the script's time
 TRAIN_CLASSES = 9_343
 TRAIN_RESIDENT = 1_024
 
@@ -2640,11 +2665,13 @@ def miner_ties_check(device) -> dict:
     return line
 
 
-def write_train_faces(root: str, device) -> float:
-    """``TRAIN_IDENTITIES`` x ``TRAIN_SAMPLES`` RGB PNG faces of
-    ``TRAIN_SIDE``², a person per folder: each identity a blocky colour
-    pattern of its own, each sample it shifted and with noise. Made on the
-    card in bulk, written by 8 threads. Returns the seconds."""
+def write_train_faces(root: str, device, n: int = TRAIN_IDENTITIES, k: int = TRAIN_SAMPLES,
+                      side: int = TRAIN_SIDE) -> float:
+    """``n`` x ``k`` RGB PNG faces of ``side``², a person per folder (by
+    default ``TRAIN_IDENTITIES`` x ``TRAIN_SAMPLES`` at ``TRAIN_SIDE``²):
+    each identity a blocky colour pattern of its own, each sample it shifted
+    and with noise. Made on the card in bulk, written by 8 threads. Returns
+    the seconds."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2654,7 +2681,6 @@ def write_train_faces(root: str, device) -> float:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
-    n, k, side = TRAIN_IDENTITIES, TRAIN_SAMPLES, TRAIN_SIDE
     coarse = torch.randint(30, 226, (n, 3, 9, 9), generator=gen, device=device).float()
     base = torch.nn.functional.interpolate(coarse, size=(side + 8, side + 8), mode="bilinear",
                                            align_corners=False)
@@ -2906,10 +2932,10 @@ def train_phase(card: str, device) -> dict:
     return out
 
 
-SYNTH_STEPS = 300  # curriculum steps; scripts/train_detector_v4.py runs 4,000
+SYNTH_STEPS = 100  # curriculum steps (cut from 300 for the script's time); the script runs 4,000
 SYNTH_EVAL_SCENES = 200  # per envelope, seed 778 (the v4 script evaluates 250)
 SYNTH_CAL_SCENES = 100  # the v4 script fits on 300
-SYNTH_IDS = 9_343  # the shipped synthid9k embedder's classes
+SYNTH_IDS = 3_000  # classes (cut from 9,343, the shipped synthid9k embedder's, for the script's time)
 SYNTH_RENDER_BUDGET_S = 90.0  # above it the identity set takes 1 train sample an id, not 2
 SYNTH_RECALL_TOL = 0.05  # the curriculum's recall against its warm start
 SYNTH_SHIPPED_TOL = 0.02  # the shipped v4 detector on the port's scenes against JAX's numbers
@@ -3110,7 +3136,7 @@ def curriculum_run(card: str, tmp: str) -> dict:
 
 
 def synthid_run(card: str, tmp: str) -> dict:
-    """``train_synthid`` at full width through ``main()``: 9,343 classes,
+    """``train_synthid`` at full width through ``main()``: ``SYNTH_IDS`` classes,
     ``stage_sizes`` (1,1,1,1), 512-D, B 128, resident, one epoch, 2 train +
     2 validation samples an id (1 + 2 when the measured render rate puts
     the set over ``SYNTH_RENDER_BUDGET_S``; one validation sample leaves no
@@ -3219,10 +3245,11 @@ def synth_phase(card: str, device) -> dict:
     return out
 
 
-EVALS_INT8_IDS = 9_343  # the record's identities (docs/INT8_AGREEMENT.json)
+EVALS_INT8_IDS = 4_000  # identities (cut from 9,343, the record's, for the script's time)
+EVALS_INT8_RECORD_IDS = 9_343  # docs/INT8_AGREEMENT.json's: its numbers are compared at that size only
 EVALS_INT8_ROWS = 1_000_000  # its --extend-to
 EVALS_INT8_MIN_AGREEMENT = 99.9  # % of probes whose top-1 stream_topk and int8_topk agree on
-EVALS_LBPH_IDS = 1_000  # the script's default (the record's 9,343 would take ~225 s to render)
+EVALS_LBPH_IDS = 400  # cut from 1,000, the script's default and the record's size, for the script's time
 EVALS_LBPH_RECORD_TOP1 = 0.165  # JAX at 1,000 ids (docs/COMPARISON.md, "LBPH at reference scale")
 EVALS_COMPARE = (120, 12, 160, 1)  # ids, renders, side, seed: docs/COMPARISON.md's set (seed 1 its A/B's)
 EVALS_OOD = (200, 100, 256)  # scenes a row (5 families + control), embedder ids, side (the records)
@@ -3488,7 +3515,9 @@ def evals_full(card: str, tmp: str) -> dict:
     images = None
     draws = run("int8_draws", lambda: distractor_draws(EVALS_INT8_IDS, EVALS_INT8_ROWS - EVALS_INT8_IDS, 512,
                                                        np.random.default_rng(0 + 1)))  # seed 0, the script's + 1
-    for ckpt in ("assets/arcface_synthid9k_ultraslim_512.msgpack", "assets/arcface_synthid9k_slim_512.msgpack"):
+    # The record's slim checkpoint only (the ultraslim one is left out for
+    # the script's time).
+    for ckpt in ("assets/arcface_synthid9k_slim_512.msgpack",):
         name = os.path.basename(ckpt).split("_")[2]
         embedded = run(f"int8_{name}_embed", lambda: render_and_embed(EVALS_INT8_IDS, 0, ckpt, 512, None,
                                                                       log=quiet, images=images))
@@ -3502,7 +3531,7 @@ def evals_full(card: str, tmp: str) -> dict:
         for gallery in ("real_9k", "capacity_1m"):
             check(rep[gallery]["top1_agreement_pct"] >= EVALS_INT8_MIN_AGREEMENT,
                   f"int8 {name} {gallery}: agreement {rep[gallery]['top1_agreement_pct']}%")
-            if name == "slim":  # the record's checkpoint
+            if name == "slim" and EVALS_INT8_IDS == EVALS_INT8_RECORD_IDS:  # the record's checkpoint and size
                 for key in ("top1_agreement_pct", "f32_top1_correct_pct", "int8_top1_correct_pct"):
                     delta(f"int8.{gallery}.{key}", rep[gallery][key], rec[gallery][key], EVALS_DELTA["top1_pp"])
     del images, draws
@@ -3513,7 +3542,10 @@ def evals_full(card: str, tmp: str) -> dict:
     check(out["launches"]["lbph"]["lbph_hist"] > 0 and out["launches"]["lbph"]["chi2_nn"] > 0,
           f"lbph: {out['launches']['lbph']}")
     out["lbph"] = {"render": rendered, "report": lbph}
-    delta("lbph.top1_pp_1000_ids", 100 * lbph["top1"], 100 * EVALS_LBPH_RECORD_TOP1, EVALS_DELTA["lbph_pp"])
+    if EVALS_LBPH_IDS == 1_000:  # the record's size
+        delta("lbph.top1_pp_1000_ids", 100 * lbph["top1"], 100 * EVALS_LBPH_RECORD_TOP1, EVALS_DELTA["lbph_pp"])
+    else:
+        out.setdefault("accuracy", {})[f"lbph.top1_pp_{EVALS_LBPH_IDS}_ids"] = {"port": 100 * lbph["top1"]}
 
     n_ids, per_id, size, seed = EVALS_COMPARE
     cmp_dir = os.path.join(tmp, "compare_ids")
@@ -3573,6 +3605,483 @@ def evals_phase(card: str, device) -> dict:
         timed("full", evals_full, card, tmp)
     out["seconds"] = seconds
     print("evals seconds", json.dumps(seconds), flush=True)
+    return out
+
+
+PARALLEL_ROWS = 1_000_003  # the sharded gallery: PARALLEL_SHARDS shards on the one card
+PARALLEL_SHARDS = 4
+PARALLEL_B, PARALLEL_K = 128, 5
+PARALLEL_GLOO_ROWS = 100_003  # the 2-rank gloo search: 2 of 4 shards a rank
+MFN_B = 128
+DP_IDS, DP_SAMPLES, DP_SIDE = 9_343, 2, 32  # the torchrun trainers' folder, resized to 112² by the loader
+DP_STEP_B, DP_STEP_CLASSES = 32, 1_000  # the 2-rank gloo ArcFace step: (1,1,1,1) ResNet at 112²
+DP_TOL = 2e-3  # of a tensor's scale: the SGD steps' tolerance of tests/test_torch_train_steps.py
+
+
+def int8_warp_checks(device) -> dict:
+    """The int8 warp mode (``fast="int8"``) against its plain version on the
+    card, bit for bit, at the align warp B 128, 256² → 112² and the crowd
+    window B 32 x M 4; timed against the plain version, with the bound
+    (the output once, the source pixels the taps reach once) and the
+    kernel's trace; the first 8 slots bit for bit against the plain version
+    on the CPU too."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.ops import warp_sample as ws
+
+    rng = np.random.default_rng(SEED + 21)
+    lines = {}
+    for name, b, m, window in (("align", WARP_B, 1, None), ("window", 32, CROWD_FACES, 160)):
+        frames, lms = warp_inputs(rng, FRAME[0], b, m, device)
+        if window:
+            kernel = lambda: ws.align_crop_window(frames, lms, 112, window, fast="int8")  # noqa: E731
+        else:
+            kernel = lambda: ws.align_crop(frames, lms, 112, fast="int8")  # noqa: E731
+        plain = lambda: ws._align_plain(frames, lms, 112, window, "int8")  # noqa: E731
+        counters = reset_counters()
+        with strict_fp32():
+            got = kernel()
+            launched = counters["warp_sample"].count
+            ref = plain()
+            diff = (got - ref).abs()
+            few = 8 // m  # the CPU's plain version on the first 8 slots (it takes seconds a slot)
+            cpu = ws._align_plain(frames[:few].cpu(), lms[:few].cpu(), 112, window, "int8")
+            line = {"case": name, "frames": b, "slots": b * m, "side": FRAME[0], "out": 112,
+                    "fast": "int8", "launches": launched, "max_abs_err": diff.max().item(),
+                    "mean_abs_err": diff.mean().item(),
+                    "cpu_plain_max_abs_diff_8_slots": (got[:8].cpu() - cpu).abs().max().item()}
+            check(launched == 1, f"int8 warp {name}: {launched} launches for one call")
+            check(line["max_abs_err"] == 0.0, f"int8 warp {name}: max |Δ| {line['max_abs_err']}")
+            check(line["cpu_plain_max_abs_diff_8_slots"] == 0.0, f"int8 warp {name} against the CPU: {line}")
+            line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
+            line["plain_ms"] = cuda_ms(plain, 3, 1)
+            moved = got.numel() * 4 + touched_pixels(frames, lms, m, "window" if window else "align", 112) * 3
+            line["bound_ms"] = (moved + lms.numel() * 4) / HBM_BYTES_PER_S * 1e3
+            line["bound_by"] = "bytes"
+            line["library_ms"] = None
+            line["trace"], line["device_us"] = kernel_trace(kernel, "warp_sample")
+        print("int8 warp", json.dumps(line), flush=True)
+        lines[name] = line
+    torch.cuda.empty_cache()
+    return lines
+
+
+def batch_helper_checks(device) -> dict:
+    """``detect_best_face_batch`` and ``align_crop_batch`` on the card
+    against the CPU port (boxes and landmarks within 1e-4 px, crops within
+    1e-3 levels)."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.detector_net import anchor_centers, detect_best_face_batch
+    from facerecognition_tpu_torch.ops.image import align_crop_batch
+
+    rng = np.random.default_rng(SEED + 22)
+    anchors = torch.as_tensor(anchor_centers(DET_SIZE))
+    raw = torch.as_tensor(rng.normal(size=(WARP_B, len(anchors), 15)).astype(np.float32))
+    raw[..., 0] *= 6.0
+    got = detect_best_face_batch(raw.to(device), anchors.to(device))
+    want = detect_best_face_batch(raw, anchors)
+    line = {"detect_best_face_batch_max_abs_diff": max((a.cpu() - b).abs().max().item()
+                                                       for a, b in zip(got, want))}
+    check(line["detect_best_face_batch_max_abs_diff"] <= 1e-4, f"detect_best_face_batch card vs CPU {line}")
+    frames, lms = warp_inputs(rng, FRAME[0], 16, 1, device)
+    crops = align_crop_batch(frames, lms[:, 0], 112)
+    line["align_crop_batch_max_abs_diff"] = (crops.cpu() - align_crop_batch(frames.cpu(), lms[:, 0].cpu(), 112)
+                                             ).abs().max().item()
+    check(line["align_crop_batch_max_abs_diff"] <= 1e-3, f"align_crop_batch card vs CPU {line}")
+    print("batch helpers", json.dumps(line), flush=True)
+    return line
+
+
+def mobilefacenet_checks(device) -> dict:
+    """MobileFaceNet at full width (512-D, 112², a seeded init) at B 128 on
+    the card against the CPU port, in evaluation and training mode (TF32
+    off): every row's cosine above 0.999; images/s of the forward, and of a
+    training step of ``MobileFaceNetArcFace`` (SGD, 1,000 classes)."""
+    import copy
+
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.models.mobilefacenet import MobileFaceNetArcFace
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    model = init_like_flax(MobileFaceNetArcFace(1_000, 512), gen)
+    cpu = copy.deepcopy(model)
+    card = model.to(device)
+    x = torch.randn((MFN_B, 112, 112, 3), generator=gen)
+    xd = x.to(device)
+    out = {"batch": MFN_B}
+    with strict_fp32():
+        for mode in ("eval", "train"):
+            card.train(mode == "train")
+            cpu.train(mode == "train")
+            with torch.no_grad():
+                a, b = card.backbone(xd).cpu(), cpu.backbone(x)
+                cos = torch.nn.functional.cosine_similarity(a, b, dim=1)
+                forward = lambda: card.backbone(xd)  # noqa: E731
+                ms = statistics.median(cuda_ms(forward, 10) for _ in range(3))
+            out[mode] = {"min_cosine": cos.min().item(), "ms": ms, "images_per_s": MFN_B / ms * 1e3}
+            check(out[mode]["min_cosine"] > 0.999, f"MobileFaceNet {mode} card vs CPU: {out[mode]}")
+        labels = torch.randint(0, 1_000, (MFN_B,), generator=gen).to(device)
+        state = steps.TrainState(card, OptaxChain(dict(card.named_parameters()), "sgd", lambda c: 0.01,
+                                                  momentum=0.9))
+        step = steps.make_arcface_train_step(0.1)
+        metrics = step(state, xd, labels)
+        check(bool(torch.isfinite(metrics["loss"])), f"MobileFaceNet train step loss {metrics}")
+        ms = statistics.median(cuda_ms(lambda: step(state, xd, labels), 5) for _ in range(3))
+        out["train_step"] = {"ms": ms, "images_per_s": MFN_B / ms * 1e3}
+    print("mobilefacenet", json.dumps(out), flush=True)
+    return out
+
+
+def sharded_gallery_checks(device) -> dict:
+    """A ``ShardedGallery`` of ``PARALLEL_ROWS`` x 512 cut into
+    ``PARALLEL_SHARDS`` shards on the one card, float32 (``stream_topk`` a
+    shard) and int8 (``int8_topk`` a shard), B 128, k 5, against one
+    ``stream_topk`` / ``int8_topk`` over the whole gallery: indices equal,
+    scores bit for bit (each row's score does not depend on its shard:
+    the difference is printed, and gated at 0); the planted rows come back
+    top-1; the sharded call's time beside the whole-gallery call's, in
+    turns."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.ops.int8_topk import int8_topk
+    from facerecognition_tpu_torch.ops.matcher import quantize_embeddings_int8_np
+    from facerecognition_tpu_torch.ops.stream_topk import stream_topk
+    from facerecognition_tpu_torch.parallel import ShardedGallery, create_mesh
+    from facerecognition_tpu_torch.parallel.sharding import _f32_topk, _int8_topk, _sharded_topk
+
+    n, d, b, k = PARALLEL_ROWS, 512, PARALLEL_B, PARALLEL_K
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    g = torch.randn((n, d), generator=gen, device=device)
+    planted = torch.randperm(n, generator=gen, device=device)[:b]
+    q = g[planted] + 0.05 * torch.randn((b, d), generator=gen, device=device)
+    host = g.cpu().numpy()
+    g = None
+    norm = host / np.maximum(np.linalg.norm(host, axis=1, keepdims=True), 1e-12)  # set_all's rows
+    names = [str(i) for i in range(n)]
+    mesh = create_mesh([device] * PARALLEL_SHARDS, gallery=PARALLEL_SHARDS)
+    out = {"rows": n, "shards": PARALLEL_SHARDS, "B": b, "k": k}
+    for quantize in (False, True):
+        kernel = "int8_topk" if quantize else "stream_topk"
+        sg = ShardedGallery(mesh, dim=d, quantize=quantize)
+        t0 = time.perf_counter()
+        sg.set_all(names, host)
+        line = {"set_all_s": time.perf_counter() - t0}
+        if quantize:
+            codes, scales = quantize_embeddings_int8_np(norm)
+            codes, scales = torch.from_numpy(codes).to(device), torch.from_numpy(scales).to(device)
+            whole = lambda: int8_topk(q, codes, scales, k)  # noqa: E731
+            fn = _int8_topk
+        else:
+            rows = torch.from_numpy(np.ascontiguousarray(norm)).to(device)
+            whole = lambda: stream_topk(q, rows, k)  # noqa: E731
+            fn = _f32_topk
+        counters = reset_counters()
+        s, i = sg.topk(q.cpu().numpy(), k)
+        line["launches"] = {name: c.count for name, c in counters.items() if c.count}
+        check(counters[kernel].count == PARALLEL_SHARDS,
+              f"{kernel} launched {counters[kernel].count} times for {PARALLEL_SHARDS} shards")
+        ws_, wi = (t.cpu().numpy() for t in whole())
+        line["indices_equal"] = bool((i == wi).all())
+        line["max_abs_score_diff"] = float(np.abs(s - ws_).max())
+        line["planted_top1"] = float((i[:, 0] == planted.cpu().numpy()).mean())
+        check(line["indices_equal"], f"sharded {kernel}: indices differ from the whole gallery's")
+        check(line["max_abs_score_diff"] == 0.0, f"sharded {kernel}: scores differ: {line}")
+        check(line["planted_top1"] == 1.0, f"sharded {kernel}: planted rows not top-1: {line}")
+        sharded = lambda: _sharded_topk(q, sg._shards, k, n, fn)  # noqa: E731
+        rounds = []
+        for _ in range(TIMING_ROUNDS):  # sharded, whole, whole, sharded
+            a = cuda_ms(sharded, 10)
+            w1, w2 = cuda_ms(whole, 10), cuda_ms(whole, 10)
+            rounds.append((a, w1, w2, cuda_ms(sharded, 10)))
+        line["sharded_ms"] = statistics.median([r[0] for r in rounds] + [r[3] for r in rounds])
+        line["whole_ms"] = statistics.median([r[1] for r in rounds] + [r[2] for r in rounds])
+        print("sharded gallery", kernel, json.dumps(line), flush=True)
+        out[kernel] = line
+        sg = rows = codes = scales = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_arcface_step(device, shard=None) -> dict:
+    """One ArcFace step ((1,1,1,1) ResNet, 512-D, 112², B ``DP_STEP_B``,
+    mixup with given draws, SGD with momentum and clip) from a seeded init,
+    as one process or as ``shard``'s rank; its metrics and final tensors on
+    the host."""
+    import torch
+
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+
+    gen = torch.Generator().manual_seed(SEED + 25)
+    model = ArcFaceModel(512, (1, 1, 1, 1), num_classes=DP_STEP_CLASSES, dropout=0.0)
+    init_like_flax(model, gen, ("fc",))
+    model = model.to(device)
+    x = torch.randn((DP_STEP_B, 112, 112, 3), generator=gen)
+    labels = torch.randint(0, DP_STEP_CLASSES, (DP_STEP_B,), generator=gen)
+    perm = torch.randperm(DP_STEP_B, generator=gen)
+    if shard is not None:
+        x, labels = shard.take(x), shard.take(labels)
+    state = steps.TrainState(model, OptaxChain(dict(model.named_parameters()), "sgd", lambda c: 0.01,
+                                               momentum=0.9, grad_clip=5.0))
+    metrics = steps.make_arcface_train_step(0.1, 0.2)(state, x.to(device), labels.to(device),
+                                                      mix=(0.7, perm), shard=shard)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "tensors": {k: v.cpu() for k, v in model.state_dict().items() if v.is_floating_point()}}
+
+
+def parallel_rank(rank: int, seed: int) -> dict:
+    """One of 2 gloo ranks sharing the card: its 2 of the 4 shards of a
+    ``PARALLEL_GLOO_ROWS``-row gallery (float32, then int8; the launches
+    counted), then its half of ``dp_arcface_step``."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch import _build
+    from facerecognition_tpu_torch.parallel import ShardedGallery, create_mesh
+    from facerecognition_tpu_torch.parallel.collectives import batch_shard
+    from facerecognition_tpu_torch.parallel.mesh import MeshDevice
+
+    device = torch.device("cuda", 0)
+    g, q = gloo_search_data(seed)
+    mesh = create_mesh([MeshDevice(i, device, i // 2) for i in range(4)], gallery=4)
+    out = {}
+    for quantize in (False, True):
+        sg = ShardedGallery(mesh, dim=g.shape[1], quantize=quantize)
+        sg.set_all([str(i) for i in range(len(g))], g)
+        counters = reset_counters()
+        s, i = sg.topk(q, PARALLEL_K)
+        out["int8" if quantize else "float32"] = {
+            "scores": s, "indices": i, "shards": len(sg._shards),
+            "launches": {name: c.count for name, c in counters.items() if c.count}}
+    out["step"] = dp_arcface_step(device, batch_shard(DP_STEP_B))
+    return out
+
+
+def gloo_search_data(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((PARALLEL_GLOO_ROWS, 512), dtype=np.float32)
+    q = g[rng.permutation(PARALLEL_GLOO_ROWS)[:PARALLEL_B]] + 0.05 * rng.standard_normal(
+        (PARALLEL_B, 512), dtype=np.float32)
+    return g, q
+
+
+def gloo_ranks_check(device) -> dict:
+    """2 ranks over gloo sharing the card (``parallel.launch.spawn_ranks``):
+    the sharded search, each rank's local top-k on its kernels, equal to the
+    single-process ``ShardedGallery`` on the same 4 shards (indices equal,
+    scores bit for bit); the data-parallel ArcFace step (global batch norm
+    and mixup pairs, gradients summed over gloo) within ``DP_TOL`` of each
+    tensor's scale of the one-process step, the loss within 1e-4."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.parallel import ShardedGallery, create_mesh
+    from facerecognition_tpu_torch.parallel.launch import spawn_ranks
+
+    seed = SEED + 26
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(parallel_rank, 2, seed, backend="gloo", threads=0)
+    out = {"spawn_s": time.perf_counter() - t0}
+    g, q = gloo_search_data(seed)
+    mesh = create_mesh([device] * 4, gallery=4)
+    for quantize in (False, True):
+        kind = "int8" if quantize else "float32"
+        kernel = "int8_topk" if quantize else "stream_topk"
+        sg = ShardedGallery(mesh, dim=512, quantize=quantize)
+        sg.set_all([str(i) for i in range(len(g))], g)
+        ws_, wi = sg.topk(q, PARALLEL_K)
+        for r, res in enumerate(ranks):
+            got = res[kind]
+            check(got["shards"] == 2 and got["launches"].get(kernel) == 2,
+                  f"rank {r} {kind}: {got['shards']} shards, launches {got['launches']}")
+            check(bool((got["indices"] == wi).all()), f"rank {r} {kind}: indices differ")
+            diff = float(np.abs(got["scores"] - ws_).max())
+            check(diff == 0.0, f"rank {r} {kind}: scores differ by {diff}")
+        out[kind] = {"launches_per_rank": [res[kind]["launches"] for res in ranks]}
+    one = dp_arcface_step(device)
+    steps_out = {}
+    for r, res in enumerate(ranks):
+        got = res["step"]
+        errs = {name: rel_err(got["tensors"][name], t, 1e-3) for name, t in one["tensors"].items()}
+        worst = max(errs, key=errs.get)
+        steps_out[r] = {"loss": got["metrics"]["loss"], "one_process_loss": one["metrics"]["loss"],
+                        "max_rel_err": errs[worst], "worst": worst}
+        check(abs(got["metrics"]["loss"] - one["metrics"]["loss"]) <= 1e-4 * abs(one["metrics"]["loss"]),
+              f"rank {r}: DP loss {got['metrics']} against {one['metrics']}")
+        check(errs[worst] <= DP_TOL, f"rank {r}: {worst} {errs[worst]} of its scale off the one-process step")
+    out["step"] = steps_out
+    print("gloo ranks", json.dumps(out), flush=True)
+    return out
+
+
+#: The trainer's command line with cuDNN's deterministic algorithms (the
+#: environment sets cuBLAS's): written to a file that ``torchrun`` and
+#: ``python`` run alike.
+TRAINER_ENTRY = """import sys
+import torch
+torch.backends.cudnn.deterministic = True
+from facerecognition_tpu_torch.training.train_arcface import main
+main(sys.argv[1:])
+"""
+
+
+def torchrun_trainer_check(device) -> dict:
+    """``train_arcface`` at the train phase's full width (``configs/arcface_config.
+    yaml``: ResNet50, 512-D, heavy, B 128, 112²) on ``DP_IDS`` = 9,343
+    identities x 2 generated faces, 2 steps with ``train.num_devices=auto``,
+    once under ``torchrun`` (a 1-rank NCCL group: the data-parallel step,
+    its collectives on NCCL) and once without a group, both with cuDNN's
+    and cuBLAS's deterministic algorithms (``TRAINER_ENTRY``: without them
+    two processes differed by 1.4-2.5e-3 of a batch-norm bias's scale): the
+    histories' train losses within 1e-3 and every tensor of the ``last``
+    checkpoints within ``DP_TOL`` of its scale; whether the two are
+    bit-equal is printed with the seconds of each run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from facerecognition_tpu_torch.training.checkpoint import CheckpointManager
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="parallel-") as tmp:
+        data = os.path.join(tmp, "faces")
+        out["write_faces_s"] = write_train_faces(data, device, DP_IDS, DP_SAMPLES, DP_SIDE)
+        torch.cuda.empty_cache()
+        entry = os.path.join(tmp, "train_arcface_deterministic.py")
+        with open(entry, "w") as f:
+            f.write(TRAINER_ENTRY)
+        env = {**os.environ, "PYTHONPATH": repo, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        args = [entry, "--config", "configs/arcface_config.yaml"]
+        for key in (f"data.data_dir={data}", "data.val_frac=0.02", "train.steps_per_epoch=2",
+                    "train.num_epochs=1", "train.num_devices=auto", "checkpoint.save_every_epochs=0"):
+            args += ["--set", key]
+        runs = {}
+        for name, launcher in (("torchrun_nccl_1", [sys.executable, "-m", "torch.distributed.run",
+                                                     "--standalone", "--nproc_per_node", "1"]),
+                               ("no_group", [sys.executable])):
+            ck = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            proc = subprocess.run(launcher + args + ["--set", f"checkpoint.dir={ck}"], cwd=repo, env=env,
+                                  capture_output=True, text=True, timeout=WATCHDOG_S // 3)
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0, f"{name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            grouped = "data-parallel: rank 0 of 1 (nccl)" in proc.stdout
+            check(grouped == (name != "no_group"), f"{name}: data-parallel line {grouped}\n{proc.stdout[-2000:]}")
+            tree, meta = CheckpointManager(ck).restore("last", map_location="cpu")
+            runs[name] = {"seconds": seconds, "history": meta["history"], "model": tree["model"]}
+    a, b = runs["torchrun_nccl_1"], runs["no_group"]
+    errs = {k: rel_err(a["model"][k].float(), v.float(), 1e-3) for k, v in b["model"].items()
+            if v.is_floating_point()}
+    worst = max(errs, key=errs.get)
+    out.update({name: {"seconds": r["seconds"], "train_loss": r["history"][-1]["train_loss"],
+                       "ver_acc": r["history"][-1]["ver_acc"]} for name, r in runs.items()})
+    out["max_rel_err"], out["worst"] = errs[worst], worst
+    out["bit_equal"] = all(torch.equal(a["model"][k], v) for k, v in b["model"].items())
+    check(abs(a["history"][-1]["train_loss"] - b["history"][-1]["train_loss"])
+          <= 1e-3 * abs(b["history"][-1]["train_loss"]), f"torchrun vs no group: {out}")
+    check(errs[worst] <= DP_TOL, f"torchrun vs no group: {worst} {errs[worst]} of its scale")
+    print("torchrun trainer", json.dumps(out), flush=True)
+    return out
+
+
+def dp_step_times(device) -> dict:
+    """The ArcFace step of ``train_step_times`` (ResNet50, B 128, 112²,
+    ``TRAIN_CLASSES`` classes, heavy, resident data) in a 1-rank NCCL group
+    in this process, as the data-parallel step (``shard``: its gradients and
+    metrics all-reduced over NCCL) and as the one-card step, timed in turns
+    (dp, one, one, dp); the group is taken down after."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from facerecognition_tpu_torch.data.augment import apply_augment, augment_draws
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.parallel.collectives import batch_shard
+    from facerecognition_tpu_torch.parallel.launch import free_port
+    from facerecognition_tpu_torch.parallel.multihost import initialize_multihost
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+    from facerecognition_tpu_torch.training.schedules import build_schedule
+    from facerecognition_tpu_torch.training.train_arcface import normalize_u8
+
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, [device.index], backend="nccl")
+    try:
+        rng = np.random.default_rng(SEED + 27)
+        gen = torch.Generator().manual_seed(SEED + 27)
+        model = init_like_flax(ArcFaceModel(512, num_classes=TRAIN_CLASSES, margin=0.2, easy_margin=True),
+                               gen, ("fc",)).to(device)
+        state = steps.TrainState(model, OptaxChain(dict(model.named_parameters()), "sgd",
+                                                   build_schedule(0.01, "cosine", 1000, 20),
+                                                   weight_decay=5e-4, grad_clip=5.0))
+        raw = steps.make_arcface_train_step(0.1)
+        data, _ = warp_inputs(rng, 112, TRAIN_RESIDENT, 1, device)
+        labels_all = torch.as_tensor(rng.integers(0, TRAIN_CLASSES, TRAIN_RESIDENT), device=device)
+        batches = [torch.as_tensor(rng.integers(0, TRAIN_RESIDENT, 128), device=device) for _ in range(8)]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        shard = batch_shard(128)
+        turn = [0]
+
+        def step(sh):
+            turn[0] += 1
+            idx = batches[turn[0] % len(batches)]
+            images = data.index_select(0, idx)
+            draws = augment_draws(g, 128, 112, "heavy")
+            return raw(state, normalize_u8(apply_augment(images, draws, "heavy")),
+                       labels_all.index_select(0, idx), g, shard=sh)
+
+        dp, one = (lambda: step(shard)), (lambda: step(None))
+        rounds = [(cuda_ms(dp, 5, 2), cuda_ms(one, 5, 2), cuda_ms(one, 5, 2), cuda_ms(dp, 5, 2))
+                  for _ in range(2)]
+        out = {"world": shard.world, "backend": dist.get_backend(), "batch": 128, "classes": TRAIN_CLASSES,
+               "dp_ms": statistics.median([r[0] for r in rounds] + [r[3] for r in rounds]),
+               "one_card_ms": statistics.median([r[1] for r in rounds] + [r[2] for r in rounds])}
+        check(np.isfinite(dp()["loss"].item()), "the data-parallel step's loss is not finite")
+    finally:
+        dist.destroy_process_group()
+    print("dp step time", json.dumps(out), flush=True)
+    return out
+
+
+def parallel_phase(card: str, device) -> dict:
+    """The last API slice and the multi-device layer on the card (a process
+    of its own): the int8 warp mode, the batch helpers, MobileFaceNet, the
+    sharded gallery on the one card, 2 gloo ranks sharing it, the
+    data-parallel step at one NCCL rank, and the trainer under a 1-rank NCCL
+    ``torchrun``."""
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    out = {"int8_warp": timed("int8_warp", int8_warp_checks, device),
+           "batch_helpers": timed("batch_helpers", batch_helper_checks, device),
+           "mobilefacenet": timed("mobilefacenet", mobilefacenet_checks, device),
+           "sharded": timed("sharded_gallery", sharded_gallery_checks, device),
+           "gloo": timed("gloo_ranks", gloo_ranks_check, device),
+           "dp_step": timed("dp_step_times", dp_step_times, device),
+           "torchrun": timed("torchrun_trainer", torchrun_trainer_check, device)}
+    out["seconds"] = seconds
+    print("parallel seconds", json.dumps(seconds), flush=True)
     return out
 
 
@@ -3701,6 +4210,9 @@ def main() -> int:
 
     with phase("evals"):
         evals = in_child("evals_phase", smi)
+
+    with phase("parallel"):
+        parallel = in_child("parallel_phase", smi)
     evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
                       + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
     evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
@@ -3769,6 +4281,28 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         },
+        *(
+            {
+                "name": "warp_sample",
+                "design": WARP_DESIGN + "; int8 mode: tap weights rint(127 w), levels rint and clipped, "
+                          "integer sums exact in float32, each vertical sample rounded to a level",
+                "case": case,
+                "route": "cuda",
+                "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
+                "replaces": "facerecognition_tpu/ops/warp_mxu.py:129",
+                "launches": parallel["int8_warp"][key]["launches"],
+                "launches_in": "the parallel phase's int8 checks (no JAX engine runs the int8 mode)",
+                "max_abs_err": parallel["int8_warp"][key]["max_abs_err"],
+                "ms": parallel["int8_warp"][key]["ms"],
+                "device_us": parallel["int8_warp"][key]["device_us"],
+                "plain_ms": parallel["int8_warp"][key]["plain_ms"],
+                "bound_ms": parallel["int8_warp"][key]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            for key, case in (("align", "align int8 B=128 256x256 -> 112x112"),
+                              ("window", "align_crop_window int8 B=32 x M=4 256x256 -> 112x112"))
+        ),
         {
             "name": "detect_post",
             "design": "one warp per frame: radix-select prefilter, shuffle bitonic sort, greedy NMS in registers",
@@ -3882,6 +4416,11 @@ def main() -> int:
         "export": evals["export"], "reduced_deltas": evals["reduced"]["deltas"],
         "accuracy": evals["full"]["accuracy"], "findings": evals["full"]["findings"],
         "launches": evals_launches, "seconds": {**evals["seconds"], **evals["full"]["seconds"]},
+    }), flush=True)
+    print("parallel", json.dumps({
+        "mobilefacenet": parallel["mobilefacenet"], "batch_helpers": parallel["batch_helpers"],
+        "sharded": parallel["sharded"], "gloo": parallel["gloo"], "torchrun": parallel["torchrun"],
+        "dp_step": parallel["dp_step"], "seconds": parallel["seconds"],
     }), flush=True)
     for entry in kernels:
         entry["evals_launches"] = evals_launches[entry["name"]]

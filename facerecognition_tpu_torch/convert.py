@@ -6,7 +6,9 @@ facenet-pytorch's names instead, which ``flax_module_name`` derives from the
 flax ones (``repeat_1_0`` → ``repeat_1.0``, ``branch1_0`` → ``branch1.0``).
 Only the layouts change:
 
-- conv kernel HWIO → ``weight`` OIHW;
+- conv kernel HWIO → ``weight`` OIHW (a depthwise kernel, I = 1 with
+  ``feature_group_count``, becomes ``Conv2d(groups=...)``'s (O, 1, H, W));
+- MobileFaceNet's PReLU slopes (flax's ``prelu`` parameter) stay ``prelu``;
 - Dense kernel (I, O) → Linear ``weight`` (O, I);
 - BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and the
   ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``
@@ -81,8 +83,8 @@ def flax_to_state_dict(variables: Mapping, include_head: bool = False) -> dict[s
             put(f"{module}.weight", value)
         elif leaf == "scale":
             put(f"{module}.weight", value)
-        elif leaf == "bias":
-            put(f"{module}.bias", value)
+        elif leaf in ("bias", "prelu"):
+            put(f"{module}.{leaf}", value)
         else:
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
     for path, value in _flatten(variables.get("batch_stats", {})):
@@ -135,8 +137,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         elif leaf == "weight":
             put(params, path + ("kernel",),
                 value.permute(2, 3, 1, 0) if value.ndim == 4 else value.T)
-        elif leaf == "bias":
-            put(params, path + ("bias",), value)
+        elif leaf in ("bias", "prelu"):
+            put(params, path + (leaf,), value)
         else:
             raise ValueError(f"unexpected state dict entry {key}")
     return {"params": params, "batch_stats": stats}

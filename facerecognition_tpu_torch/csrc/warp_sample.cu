@@ -33,7 +33,15 @@
 // product of two bf16 values is exact in float32, so each sum of two taps is
 // rounded once, in any order, and the kernel gives the plain version's bits.
 // Without `fast` the products round, and the plain version's matrix products
-// may sum in another order: equal within float32 rounding. A NaN sample
+// may sum in another order: equal within float32 rounding. The int8 mode
+// (fast = 2, JAX's fast="int8"; not for the resize, where JAX takes "int8" as
+// a true value and the wrapper passes 1) quantises each tap's weight to
+// rint(w * 127) and each pixel to clip(rint(p), 0, 255); every sum is then an
+// integer below 2^24, exact in float32 in any order. Each vertical sample is
+// 127 x the mid pixel: it is rounded to the pixel (a product with
+// float32(1/127), rint, clip) before the horizontal blend, as the plain
+// version's pass 1 rounds, and the blend ends with the same product, so the
+// kernel gives the plain version's bits. A NaN sample
 // position gives zero weight here, where the matrix products give NaN. The
 // normalisation is the one PyTorch runs on the card: a division by a Python
 // number is a product with its float32 reciprocal.
@@ -70,6 +78,9 @@
 #include <cmath>
 #include <cstdint>
 
+// The `fast` modes: float32, bf16 operands, int8 operands.
+enum { F32 = 0, BF16 = 1, INT8 = 2 };
+
 // Mirrored field for field by ops/warp_sample._Args (ctypes). Outside the
 // anonymous namespace: warp_sample_launch, which takes it, keeps C linkage.
 struct WarpArgs {
@@ -82,7 +93,7 @@ struct WarpArgs {
   int slots, per_frame;    // slot s reads frame s / per_frame
   int out_h, out_w;
   int window;              // crop side (already min(window, H, W)); 0: whole frame
-  int fast, normalize;
+  int fast, normalize;     // fast: F32, BF16 or INT8
   float lm_scale_x, lm_scale_y, lm_min, lm_max_x, lm_max_y;
   float tmpl[10];          // the template scaled to out_size, (x, y) per point
   float norm_mul, norm_sub, norm_scale;  // ((v * mul) - sub) * scale
@@ -375,12 +386,26 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// The plain version's clamp(1 - |pos - tap|, min=0). Its zero outside
-// [lo, hi] is the callers': they skip such a position altogether.
-template <bool FAST>
+// float32(1 / 127): XLA's division by 127 in the int8 mode.
+constexpr float R127 = 1.0f / 127.0f;
+
+// The plain version's clamp(1 - |pos - tap|, min=0), as the mode rounds it.
+// Its zero outside [lo, hi] is the callers': they skip such a position
+// altogether.
+template <int MODE>
 __device__ __forceinline__ float tap_weight(float pos, float tap) {
   const float w = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(pos, tap))), 0.0f);
-  return FAST ? bf16_rn(w) : w;
+  return MODE == BF16 ? bf16_rn(w) : MODE == INT8 ? rintf(__fmul_rn(w, 127.0f)) : w;
+}
+
+// The int8 mode's rounding of a level: rint, clip to [0, 255].
+__device__ __forceinline__ float level(float v) { return fminf(fmaxf(rintf(v), 0.0f), 255.0f); }
+
+// A vertical sample as the horizontal blend takes it.
+template <int MODE, bool FINITE>
+__device__ __forceinline__ float mid_operand(float m) {
+  return MODE == BF16 ? (FINITE ? bf16_rn(m) : bf16_round(m))
+         : MODE == INT8 ? level(__fmul_rn(m, R127)) : m;
 }
 
 // Thread 0 of a block: its slot's parameters, once per block.
@@ -429,7 +454,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, const Slot& sl, const 
 // The taps of four output pixels read from global memory, with every check
 // as a branch: float32 frames, and uint8 tiles not staged (a footprint above
 // the budget, rows not 16-byte aligned, or a map too large to bound).
-template <bool U8, bool FAST, bool RESIZE>
+template <bool U8, int MODE, bool RESIZE>
 __device__ void sample_global(const Args& a, const Slot& sl, int i, int j0, int jb,
                               float (&res)[CH][4]) {
   const float fi = (float)i;
@@ -451,12 +476,14 @@ __device__ void sample_global(const Args& a, const Slot& sl, int i, int j0, int 
     for (int u = 0; u < 2; ++u) {
       const int y = yi + u;
       if (y < 0 || y >= sl.reg_h) continue;
-      const float wy = tap_weight<FAST>(Y, __fadd_rn(yf, (float)u));
+      const float wy = tap_weight<MODE>(Y, __fadd_rn(yf, (float)u));
       float v[CH];
       fetch(y, x, v);
 #pragma unroll
       for (int c = 0; c < CH; ++c)
-        mid[c] = __fmaf_rn(wy, (FAST && !U8) ? bf16_round(v[c]) : v[c], mid[c]);
+        mid[c] = __fmaf_rn(
+            wy, U8 ? v[c] : MODE == BF16 ? bf16_round(v[c]) : MODE == INT8 ? level(v[c]) : v[c],
+            mid[c]);
     }
   };
 
@@ -490,7 +517,7 @@ __device__ void sample_global(const Args& a, const Slot& sl, int i, int j0, int 
         const int x = xi + t;
         if (x < 0 || x >= sl.reg_w) continue;
         const float xt = __fadd_rn(xf, (float)t);
-        const float wx = tap_weight<FAST>(xs, xt);
+        const float wx = tap_weight<MODE>(xs, xt);
         float mid[CH];
         if (RESIZE) {
           column(x, row_y, row_yf, row_yi, mid);
@@ -503,11 +530,11 @@ __device__ void sample_global(const Args& a, const Slot& sl, int i, int j0, int 
         }
 #pragma unroll
         for (int c = 0; c < CH; ++c)
-          acc[c] = __fmaf_rn(wx, FAST ? bf16_round(mid[c]) : mid[c], acc[c]);
+          acc[c] = __fmaf_rn(wx, mid_operand<MODE, false>(mid[c]), acc[c]);
       }
     }
 #pragma unroll
-    for (int c = 0; c < CH; ++c) res[c][p] = acc[c];
+    for (int c = 0; c < CH; ++c) res[c][p] = MODE == INT8 ? __fmul_rn(acc[c], R127) : acc[c];
   }
 }
 
@@ -515,7 +542,7 @@ __device__ void sample_global(const Args& a, const Slot& sl, int i, int j0, int 
 // or its bounds is read at a harmless offset and its sum left unchanged by a
 // select, so a warp never diverges. The footprint covers every valid tap
 // (see footprint), so no tap is checked against it.
-template <bool FAST, bool RESIZE>
+template <int MODE, bool RESIZE>
 __device__ __forceinline__ void sample_staged(const Args& a, const Slot& sl, const Footprint& fp,
                                               const unsigned char* stage, int i, int j0, int jb,
                                               float (&res)[CH][4]) {
@@ -533,7 +560,7 @@ __device__ __forceinline__ void sample_staged(const Args& a, const Slot& sl, con
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       vr[u] = (unsigned)(yi + u) < (unsigned)sl.reg_h;
-      wr[u] = tap_weight<FAST>(Y, __fadd_rn(yf, (float)u));
+      wr[u] = tap_weight<MODE>(Y, __fadd_rn(yf, (float)u));
       rr[u] = vr[u] ? (yi + u - fp.ylo) * fp.pitch : 0;
     }
   } else {
@@ -557,7 +584,7 @@ __device__ __forceinline__ void sample_staged(const Args& a, const Slot& sl, con
       const int x = xi + t;
       const float xt = __fadd_rn(xf, (float)t);
       const bool vt = vx && (unsigned)x < (unsigned)sl.reg_w;
-      const float wx = tap_weight<FAST>(xs, xt);
+      const float wx = tap_weight<MODE>(xs, xt);
       const int col = vt ? col0 + x * CH : 0;
       float w[2];
       int row[2];
@@ -574,7 +601,7 @@ __device__ __forceinline__ void sample_staged(const Args& a, const Slot& sl, con
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           v[u] = vy && (unsigned)(yi + u) < (unsigned)sl.reg_h;
-          w[u] = tap_weight<FAST>(Y, __fadd_rn(yf, (float)u));
+          w[u] = tap_weight<MODE>(Y, __fadd_rn(yf, (float)u));
           row[u] = v[u] ? (yi + u - fp.ylo) * fp.pitch : 0;
         }
       }
@@ -588,16 +615,16 @@ __device__ __forceinline__ void sample_staged(const Args& a, const Slot& sl, con
       }
 #pragma unroll
       for (int c = 0; c < CH; ++c)
-        acc[c] = vt ? __fmaf_rn(wx, FAST ? bf16_rn(mid[c]) : mid[c], acc[c]) : acc[c];
+        acc[c] = vt ? __fmaf_rn(wx, mid_operand<MODE, true>(mid[c]), acc[c]) : acc[c];
     }
 #pragma unroll
-    for (int c = 0; c < CH; ++c) res[c][p] = acc[c];
+    for (int c = 0; c < CH; ++c) res[c][p] = MODE == INT8 ? __fmul_rn(acc[c], R127) : acc[c];
   }
 }
 
 // One tile of slot s: every thread its four pixels of one row, all channels,
 // normalised and written with one 16-byte store per channel plane.
-template <bool U8, bool FAST, bool RESIZE>
+template <bool U8, int MODE, bool RESIZE>
 __device__ __forceinline__ void sample_tile(const Args& a, const Tiling& tl, const Slot& sl,
                                             const Footprint& fp_sm, const unsigned char* stage,
                                             const Rect& rc, int s) {
@@ -607,9 +634,9 @@ __device__ __forceinline__ void sample_tile(const Args& a, const Tiling& tl, con
   if (i > rc.ib || j0 > jb) return;  // a thread of a partial tile
   float res[CH][4];
   if (U8 && fp_sm.use)
-    sample_staged<FAST, RESIZE>(a, sl, fp_sm, stage, i, j0, jb, res);
+    sample_staged<MODE, RESIZE>(a, sl, fp_sm, stage, i, j0, jb, res);
   else
-    sample_global<U8, FAST, RESIZE>(a, sl, i, j0, jb, res);
+    sample_global<U8, MODE, RESIZE>(a, sl, i, j0, jb, res);
   if (a.normalize) {
 #pragma unroll
     for (int c = 0; c < CH; ++c)
@@ -638,7 +665,7 @@ __device__ __forceinline__ void sample_tile(const Args& a, const Tiling& tl, con
 // parameters once, then the block runs its tiles as a two-stage pipeline:
 // the footprint of tile k + 1 is copied into one stage buffer while tile k
 // is sampled from the other.
-template <bool U8, bool FAST, bool RESIZE>
+template <bool U8, int MODE, bool RESIZE>
 __global__ void __launch_bounds__(MAX_THREADS) warp_sample(const Args a, const Tiling tl) {
   __shared__ __align__(16) unsigned char stage[2][STAGE_BYTES + STAGE_PAD];
   __shared__ Slot slot_sm;
@@ -671,15 +698,15 @@ __global__ void __launch_bounds__(MAX_THREADS) warp_sample(const Args a, const T
       }
     }
     __syncthreads();  // tile k's footprint is in stage[k & 1]
-    sample_tile<U8, FAST, RESIZE>(a, tl, sl, fp_sm[k % 3], stage[k & 1],
+    sample_tile<U8, MODE, RESIZE>(a, tl, sl, fp_sm[k % 3], stage[k & 1],
                                   tile_rect(a, tl, q0 + k), s);
   }
 }
 
-template <bool U8, bool FAST, bool RESIZE>
+template <bool U8, int MODE, bool RESIZE>
 void launch(const Args& a, const Tiling& tl, int tiles, cudaStream_t st) {
   const dim3 grid(a.slots, tiles);
-  warp_sample<U8, FAST, RESIZE><<<grid, tl.groups * tl.tile_h, 0, st>>>(a, tl);
+  warp_sample<U8, MODE, RESIZE><<<grid, tl.groups * tl.tile_h, 0, st>>>(a, tl);
 }
 
 }  // namespace
@@ -690,8 +717,8 @@ extern "C" {
 // frame s (landmarks and matrices null), warped from frame s by its forward
 // map matrices[s], or warped from frame s / per_frame by the map its
 // landmarks give, from the whole frame or (window > 0) from its window^2
-// crop, zero outside it. Returns 0, a CUDA error code, or -1 for
-// arguments it cannot run.
+// crop, zero outside it; `fast` F32, BF16 or INT8 (INT8 not with the
+// resize). Returns 0, a CUDA error code, or -1 for arguments it cannot run.
 int warp_sample_launch(const WarpArgs* args, int device, void* stream) {
   if (args == nullptr) return -1;
   const Args& a = *args;
@@ -703,7 +730,8 @@ int warp_sample_launch(const WarpArgs* args, int device, void* stream) {
       a.W < 1 || a.out_h < 1 || a.out_w < 1 || a.per_frame < 1 ||
       (long long)a.n_frames * a.per_frame != a.slots || a.window < 0 || a.window > a.H ||
       a.window > a.W || (resize && (a.per_frame != 1 || a.window != 0)) ||
-      (!resize && a.window > 0 && a.out_h != a.out_w))
+      (!resize && a.window > 0 && a.out_h != a.out_w) || a.fast < F32 || a.fast > INT8 ||
+      (resize && a.fast == INT8))
     return -1;
   Tiling tl;
   const int groups = (a.out_w + 3) / 4;
@@ -734,16 +762,18 @@ int warp_sample_launch(const WarpArgs* args, int device, void* stream) {
     return -1;
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  const int mode = (a.frames_u8 ? 4 : 0) | (a.fast ? 2 : 0) | (resize ? 1 : 0);
+  const int mode = (a.frames_u8 ? 6 : 0) + 2 * a.fast + (resize ? 1 : 0);
   switch (mode) {
-    case 0: launch<false, false, false>(a, tl, (int)tiles, st); break;
-    case 1: launch<false, false, true>(a, tl, (int)tiles, st); break;
-    case 2: launch<false, true, false>(a, tl, (int)tiles, st); break;
-    case 3: launch<false, true, true>(a, tl, (int)tiles, st); break;
-    case 4: launch<true, false, false>(a, tl, (int)tiles, st); break;
-    case 5: launch<true, false, true>(a, tl, (int)tiles, st); break;
-    case 6: launch<true, true, false>(a, tl, (int)tiles, st); break;
-    default: launch<true, true, true>(a, tl, (int)tiles, st); break;
+    case 0: launch<false, F32, false>(a, tl, (int)tiles, st); break;
+    case 1: launch<false, F32, true>(a, tl, (int)tiles, st); break;
+    case 2: launch<false, BF16, false>(a, tl, (int)tiles, st); break;
+    case 3: launch<false, BF16, true>(a, tl, (int)tiles, st); break;
+    case 4: launch<false, INT8, false>(a, tl, (int)tiles, st); break;
+    case 6: launch<true, F32, false>(a, tl, (int)tiles, st); break;
+    case 7: launch<true, F32, true>(a, tl, (int)tiles, st); break;
+    case 8: launch<true, BF16, false>(a, tl, (int)tiles, st); break;
+    case 9: launch<true, BF16, true>(a, tl, (int)tiles, st); break;
+    default: launch<true, INT8, false>(a, tl, (int)tiles, st); break;
   }
   err = cudaGetLastError();
   const cudaError_t restored = cudaSetDevice(caller_device);

@@ -234,3 +234,7 @@ def detect_best_face(raw: torch.Tensor, anchors: torch.Tensor):
     r = torch.gather(raw, 1, i[:, None, None].expand(-1, 1, raw.shape[-1]))[:, 0]
     scores, boxes, landmarks = decode_predictions(r, anchors[i])
     return boxes, landmarks, scores
+
+
+#: JAX's ``vmap`` of its one-image ``detect_best_face``: the port's is batched.
+detect_best_face_batch = detect_best_face

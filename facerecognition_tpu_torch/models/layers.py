@@ -12,10 +12,19 @@
   cannot match: the generators differ): ``lecun_normal`` (a normal truncated
   at two standard deviations) on every convolution and linear weight,
   ``kaiming_normal`` (also truncated) where named, zero biases, unit scales.
+- ``global_batch(shard)``: inside it a data-parallel rank computes as one
+  process on the whole batch would: the batch norms take their statistics
+  over every rank's rows (``GlobalBatchNorm``: the sums all-reduced in the
+  forward, the gradient's sums in the backward, accumulated in float64 as
+  the CPU's batch norm accumulates them; flax's running-statistics rule
+  kept), and ``dropout`` draws the whole batch's mask and keeps this rank's
+  rows. ``torch.nn.SyncBatchNorm`` would update ``running_var`` unbiased
+  and takes no CPU tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Iterable, Optional
 
@@ -23,10 +32,70 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from facerecognition_tpu_torch.parallel.collectives import BatchShard, all_reduce_sum
+
 #: flax's BatchNorm momentum: running = momentum * running + (1 - momentum) * batch.
 FLAX_MOMENTUM = 0.9
 #: Standard deviation of a standard normal truncated to [-2, 2] (flax's constant).
 _TRUNC_STD = 0.87962566103423978
+
+
+#: The data-parallel shard of the batch in flight (``global_batch``). A
+#: process-wide value, not a context variable: a rematerialised forward runs
+#: again in the autograd engine's thread of the card.
+_shard: Optional[BatchShard] = None
+
+
+@contextlib.contextmanager
+def global_batch(shard: Optional[BatchShard]):
+    """Batch norms and dropout inside the block act on the global batch of
+    which this rank holds ``shard`` (nothing changes for None or one rank)."""
+    global _shard
+    prev, _shard = _shard, shard if shard is not None and shard.world > 1 else None
+    try:
+        yield
+    finally:
+        _shard = prev
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm over the rows of every rank: ``(y, mean,
+    E[x²])`` of a rank's (N, C, ...) ``x``, with ``n`` elements a channel
+    over all ranks. The forward all-reduces each channel's sum and sum of
+    squares, then the sum of squared deviations (the biased variance, two
+    passes); the backward all-reduces the sums of ``dy`` and ``dy·x̂`` that
+    ``dx`` needs. ``weight``'s and ``bias``'s gradients are this rank's sums
+    (the step sums gradients over the ranks). Sums accumulate in float64."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, n: int):
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        sums = all_reduce_sum(torch.stack([torch.sum(x, dims, dtype=torch.float64),
+                                           torch.sum(x * x, dims, dtype=torch.float64)]))
+        mean = sums[0] / n
+        xc = x - mean.to(x.dtype).view(shape)
+        var = all_reduce_sum(torch.sum(xc * xc, dims, dtype=torch.float64)) / n
+        invstd = torch.rsqrt(var + eps).to(x.dtype)
+        xhat = xc * invstd.view(shape)
+        sq = sums[1] / n
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, sq)
+        return xhat * weight.view(shape) + bias.view(shape), mean, sq
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _sq):
+        xhat, invstd, weight = ctx.saved_tensors
+        dims = [0] + list(range(2, dy.ndim))
+        shape = [1, -1] + [1] * (dy.ndim - 2)
+        local = torch.stack([torch.sum(dy, dims, dtype=torch.float64),
+                             torch.sum(dy * xhat, dims, dtype=torch.float64)])
+        g = all_reduce_sum(local) / ctx.n
+        dx = (weight * invstd).view(shape) * (
+            dy - g[0].to(dy.dtype).view(shape) - xhat * g[1].to(dy.dtype).view(shape)
+        )
+        return dx, local[1].to(weight.dtype), local[0].to(weight.dtype), None, None
 
 
 class _FlaxTrainStats:
@@ -34,18 +103,33 @@ class _FlaxTrainStats:
     #: each step updates the running statistics once.
     update_stats = True
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        keep = FLAX_MOMENTUM
+        self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+        self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+
+    def _global_forward(self, x: torch.Tensor, shard: BatchShard) -> torch.Tensor:
+        """Training mode over the global batch (``GlobalBatchNorm``)."""
+        n = x.numel() // x.shape[1] * shard.world
+        y, mean, sq = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, n)
+        if self.update_stats:
+            with torch.no_grad():
+                var = torch.clamp(sq - mean * mean, min=0.0)
+                self._update_running(mean.to(x.dtype), var.to(x.dtype))
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _shard is not None:
+            return self._global_forward(x, _shard)
         if self.update_stats:
             dims = [0] + list(range(2, x.ndim))
             with torch.no_grad():
                 xd = x.detach()
                 mean = xd.mean(dims)
                 var = torch.clamp((xd * xd).mean(dims) - mean * mean, min=0.0)
-                keep = FLAX_MOMENTUM
-                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
@@ -74,7 +158,11 @@ def dropout(
     keep_prob = 1.0 - p
     if keep_prob <= 0.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if _shard is not None:  # the global batch's draws, this rank's rows
+        draws = torch.rand((_shard.total,) + tuple(x.shape[1:]), generator=generator, device=x.device)
+        keep = _shard.take(draws) < keep_prob
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

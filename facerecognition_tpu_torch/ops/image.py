@@ -16,6 +16,7 @@ from facerecognition_tpu_torch.ops.umeyama import (
     fma,
     invert_affine,
     umeyama,
+    umeyama_batch,
 )
 
 
@@ -106,10 +107,12 @@ def _gather_bilinear(
     img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, mode: str = "constant"
 ) -> torch.Tensor:
     """Sample ``img`` (H, W, C) at float positions ``xs``/``ys`` (out_h,
-    out_w) by bilinear interpolation. ``mode``: ``"constant"`` (taps outside
-    the image read 0, cv2.BORDER_CONSTANT) or ``"edge"`` (clamped,
+    out_w) by bilinear interpolation; a batch (N, H, W, C) at (N, out_h,
+    out_w) positions, image n at positions n. ``mode``: ``"constant"`` (taps
+    outside the image read 0, cv2.BORDER_CONSTANT) or ``"edge"`` (clamped,
     cv2.BORDER_REPLICATE)."""
-    h, w = img.shape[0], img.shape[1]
+    h, w = img.shape[-3], img.shape[-2]
+    batch = () if img.ndim == 3 else (torch.arange(img.shape[0], device=img.device)[:, None, None],)
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
     wx = (xs - x0)[..., None]
@@ -117,7 +120,7 @@ def _gather_bilinear(
     x0i, y0i = x0.long(), y0.long()
 
     def tap(yi, xi):
-        vals = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        vals = img[batch + (yi.clamp(0, h - 1), xi.clamp(0, w - 1))]
         if mode == "edge":
             return vals
         valid = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))[..., None]
@@ -133,14 +136,15 @@ def affine_warp(image: torch.Tensor, m: torch.Tensor, out_h: int, out_w: int) ->
     (out_h, out_w, C), as ``cv2.warpAffine`` with INTER_LINEAR and a zero
     border: output pixel (x, y) samples the input at ``m^-1 (x, y)``. The
     sample positions are ``m00 x + m01 y + m02`` with the first product and
-    the second fused into one rounding, as XLA on the CPU contracts them."""
+    the second fused into one rounding, as XLA on the CPU contracts them.
+    A batch (N, H, W, C) with (N, 2, 3) maps warps image n by map n."""
     img = image.float()
-    minv = invert_affine(m.float())
+    minv = invert_affine(m.float())[..., None, None]
     dev = img.device
     ys = torch.arange(out_h, device=dev, dtype=torch.float32)[:, None].expand(out_h, out_w)
     xs = torch.arange(out_w, device=dev, dtype=torch.float32)[None, :].expand(out_h, out_w)
-    src_x = fma(minv[0, 0], xs, minv[0, 1] * ys) + minv[0, 2]
-    src_y = fma(minv[1, 0], xs, minv[1, 1] * ys) + minv[1, 2]
+    src_x = fma(minv[..., 0, 0, :, :], xs, minv[..., 0, 1, :, :] * ys) + minv[..., 0, 2, :, :]
+    src_y = fma(minv[..., 1, 0, :, :], xs, minv[..., 1, 1, :, :] * ys) + minv[..., 1, 2, :, :]
     return _gather_bilinear(img, src_x, src_y)
 
 
@@ -151,6 +155,14 @@ def align_crop(image: torch.Tensor, landmarks: torch.Tensor, out_size: int = 112
     template = torch.as_tensor(ARCFACE_TEMPLATE, device=image.device) * (out_size / 112.0)
     m = umeyama(landmarks.float(), template)
     return affine_warp(image, m, out_size, out_size)
+
+
+def align_crop_batch(images: torch.Tensor, landmarks: torch.Tensor, out_size: int = 112) -> torch.Tensor:
+    """``align_crop`` of every image at once (JAX's ``vmap``): images (N, H,
+    W, C), landmarks (N, 5, 2) → (N, out_size, out_size, C) float32."""
+    template = torch.as_tensor(ARCFACE_TEMPLATE, device=images.device) * (out_size / 112.0)
+    ms = umeyama_batch(landmarks.float(), template)
+    return affine_warp(images, ms, out_size, out_size)
 
 
 def crop_with_margin(

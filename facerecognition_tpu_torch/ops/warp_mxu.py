@@ -13,6 +13,15 @@ product or reduction whose order a library picks).
 ``fast=True`` mirrors JAX's bf16 operands with float32 results: operands
 are rounded to bf16 and multiplied in float32 (TF32 off), which gives the
 same products, since a product of two bf16 values is exact in float32.
+
+``fast="int8"`` is JAX's integer mode of the warp: weights ``round(w·127)``,
+pixels ``clip(round(p), 0, 255) − 128``, int32 sums; pass 1 gives ``acc +
+128·Σwq`` (127 times the mid pixel), divided by 127 in float32 (XLA's
+product with float32(1/127)), rounded half to even, clipped to [0, 255] and re-centred; pass 2 ends with ``(acc2 +
+128·Σwq) / 127``. Every sum is an integer below 2^24, so it is exact in any
+order; the sums run in float64 here (integer matrix products have no CUDA
+kernel in PyTorch). The resize takes ``"int8"`` as JAX's does: a true value,
+its bf16 path.
 """
 
 from __future__ import annotations
@@ -26,12 +35,20 @@ from facerecognition_tpu_torch.ops.umeyama import (
     umeyama_batch,
 )
 
-#: The text of the ``NotImplementedError`` for JAX's ``fast="int8"`` mode
-#: (int8 weights and pixels − 128, int32 sums; ``warp_mxu.py:129-155``).
-INT8_MODE_NOT_PORTED = (
-    "only fast=False/True are ported: the int8 warp mode (fast='int8') is not; "
-    "no JAX engine uses it, and ROADMAP Queue 1 item 5 holds it"
-)
+#: The warp's modes: float32, bf16 operands (``True``) and int8 operands.
+FAST_MODES = (False, True, "int8")
+
+
+def check_fast(fast) -> None:
+    """``fast`` must be one of ``FAST_MODES``."""
+    if fast not in FAST_MODES:
+        raise ValueError(f"fast must be False, True or 'int8', got {fast!r}")
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127.0`` in float32 as XLA computes it: a product with the
+    float32 reciprocal of 127 (both devices multiply by the same tensor)."""
+    return x * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -93,12 +110,27 @@ def _warp_from_inverse(
     wy = _interp_weights(ypos.transpose(1, 2), h)  # (k, W, out_h, H)
     xpos = fma(m00[:, None, None], jj, m01[:, None, None] * ii) + m02[:, None, None]
     wx = _interp_weights(xpos, w)  # (k, out_h, out_w, W)
+    if fast == "int8":
+        return _int8_passes(imgs, wy, wx)
     if fast:
         wy, wx, imgs = _bf16_round(wy), _bf16_round(wx), _bf16_round(imgs)
     mid = torch.einsum("kxiy,kyxc->kxic", wy, imgs)  # (k, W, out_h, C)
     if fast:
         mid = _bf16_round(mid)
     return torch.einsum("kijx,kxic->kijc", wx, mid)  # (k, out_h, out_w, C)
+
+
+def _int8_passes(imgs: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """JAX's ``fast="int8"`` passes on the float weights ``wy`` (k, W, out_h,
+    H) and ``wx`` (k, out_h, out_w, W): integer sums held in float64."""
+    wyq = torch.round(wy * 127.0).double()
+    wxq = torch.round(wx * 127.0).double()
+    pc = torch.clamp(torch.round(imgs), 0.0, 255.0).double() - 128.0
+    acc = torch.einsum("kxiy,kyxc->kxic", wyq, pc)
+    mid127 = acc + 128.0 * wyq.sum(-1)[..., None]  # 127 x the mid pixel
+    midc = torch.clamp(torch.round(div127(mid127.float())), 0.0, 255.0).double() - 128.0
+    acc2 = torch.einsum("kijx,kxic->kijc", wxq, midc)
+    return div127((acc2 + 128.0 * wxq.sum(-1)[..., None]).float())
 
 
 def affine_warp_mxu_batch(
@@ -116,13 +148,13 @@ def affine_warp_mxu_batch(
       ms: (B, 2, 3) forward affine matrices (cv2.warpAffine convention).
       out_h, out_w: output size.
       chunk: images per step, bounding the (chunk, W, out_h, H) weights.
-      fast: bf16 operands with float32 products and sums.
+      fast: False (float32), True (bf16 operands with float32 products and
+        sums) or "int8" (int8 operands, integer sums; see the module).
 
     Returns:
       (B, out_h, out_w, C) float32.
     """
-    if fast not in (True, False):
-        raise NotImplementedError(INT8_MODE_NOT_PORTED)
+    check_fast(fast)
     images = images.float()
     minv = invert_affine(ms.float())
     return torch.cat(
@@ -146,7 +178,10 @@ def bilinear_resize_mxu_batch(
     images: torch.Tensor, out_h: int, out_w: int, fast: bool = False
 ) -> torch.Tensor:
     """Batched bilinear resize (cv2 half-pixel centres, edge clamp) as two
-    shared-weight products. (B, H, W, C) → (B, out_h, out_w, C) float32."""
+    shared-weight products. (B, H, W, C) → (B, out_h, out_w, C) float32.
+    ``fast="int8"`` is a true value here, as in JAX: the bf16 path."""
+    check_fast(fast)
+    fast = bool(fast)
     _, h, w, _ = images.shape
     img = images.float()
     dev = img.device

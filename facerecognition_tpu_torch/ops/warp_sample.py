@@ -18,6 +18,10 @@ Public functions:
 - ``affine_warp``: the kernel's matrix mode, each slot warped by a given
   forward map (``affine_warp_mxu_batch``; training's augmentation).
 
+``fast``: False (float32), True (bf16 operands) or ``"int8"`` (JAX's int8
+operands and integer sums, ``warp_mxu``'s module text) for every warp; the
+resizes take ``"int8"`` as the bf16 path, as JAX's resize does.
+
 A tensor on the CPU takes the plain version (the composition of the plain
 functions). A CUDA tensor launches the kernel or raises; nothing falls back.
 uint8 frames are read as they are (no float copy); float32 frames are read
@@ -86,9 +90,9 @@ DETECTOR_NORM = (_f32_reciprocal(127.5), 1.0, 1.0)
 EMBEDDER_NORM = (_f32_reciprocal(255.0), 0.5, _f32_reciprocal(0.5))
 
 
-def _check_fast(fast) -> None:
-    if fast not in (True, False):
-        raise NotImplementedError(warp_mxu.INT8_MODE_NOT_PORTED)
+def _mode(fast) -> int:
+    """The kernel's ``fast`` field: 0 float32, 1 bf16, 2 int8."""
+    return 2 if fast == "int8" else int(fast)
 
 
 def _check_frames(frames: torch.Tensor) -> None:
@@ -181,7 +185,7 @@ def _launch(
         matrices=None if matrices is None else matrices.data_ptr(),
         frames_u8=int(frames.dtype == torch.uint8), n_frames=b, H=h, W=w,
         slots=slots, per_frame=per_frame, out_h=out_h, out_w=out_w,
-        window=window, fast=int(fast), normalize=int(norm is not None),
+        window=window, fast=_mode(fast), normalize=int(norm is not None),
         lm_scale_x=lm_scale[0], lm_scale_y=lm_scale[1], lm_min=lm_bounds[0],
         lm_max_x=lm_bounds[1], lm_max_y=lm_bounds[2],
         tmpl=(ctypes.c_float * 10)(*_template(out_h)),
@@ -276,10 +280,10 @@ def bilinear_resize(
 ) -> torch.Tensor:
     """``warp_mxu.bilinear_resize_mxu_batch``: (B, H, W, 3) → (B, out_h,
     out_w, 3) float32, cv2 half-pixel centres, edge clamp."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if images.device.type == "cpu":
         return warp_mxu.bilinear_resize_mxu_batch(images, out_h, out_w, fast)
-    return _launch(images, out_h, out_w, fast)
+    return _launch(images, out_h, out_w, bool(fast))
 
 
 def align_crop(
@@ -289,7 +293,7 @@ def align_crop(
     landmarks (B, M, 5, 2) in frame pixels → (B·M, out_size, out_size, 3),
     slot-major per frame. The plain version repeats each frame M times and
     takes ``align_crop_mxu_batch``; the kernel reads frame s // M for slot s."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if frames.device.type == "cpu":
         return _align_plain(frames, landmarks, out_size, None, fast)
     return _launch(frames, out_size, out_size, fast, landmarks)
@@ -306,7 +310,7 @@ def align_crop_window(
     ``window``² crop (zero outside it). frames (B, H, W, 3), landmarks
     (B, M, 5, 2) → (B·M, out_size, out_size, 3). The kernel reads the crop
     in place."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if frames.device.type == "cpu":
         return _align_plain(frames, landmarks, out_size, window, fast)
     _, h, w, _ = frames.shape
@@ -321,7 +325,7 @@ def affine_warp(
     convention) → (B, out_h, out_w, 3) float32, zero outside the frame. The
     kernel inverts each map in the launch (on the card an NHWC view of NCHW
     memory)."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if frames.device.type == "cpu":
         return warp_mxu.affine_warp_mxu_batch(frames, ms, out_h, out_w, fast=fast)
     return _launch(frames, out_h, out_w, fast, matrices=ms)
@@ -342,10 +346,10 @@ def detector_input(frames: torch.Tensor, size: int, fast: bool = True) -> torch.
     """The detector's input: ``bilinear_resize(frames, size, size, fast) /
     127.5 - 1.0``, (B, size, size, 3) float32 (on the card an NHWC view of
     NCHW memory)."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if frames.device.type == "cpu":
         return detector_input_plain(frames, size, fast)
-    return _launch(frames, size, size, fast, norm=DETECTOR_NORM)
+    return _launch(frames, size, size, bool(fast), norm=DETECTOR_NORM)
 
 
 def embedder_input(
@@ -361,7 +365,7 @@ def embedder_input(
     each slot aligned from its whole frame (``window`` None) or from its
     ``window``² crop, then ``normalize_imagenet_style``: (B·M, out_size,
     out_size, 3) float32 (on the card an NHWC view of NCHW memory)."""
-    _check_fast(fast)
+    warp_mxu.check_fast(fast)
     if frames.device.type == "cpu":
         return embedder_input_plain(frames, landmarks, det_size, out_size, window, fast)
     _, h, w, _ = frames.shape

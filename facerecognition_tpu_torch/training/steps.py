@@ -23,6 +23,18 @@ step's ``gradients`` attribute is its first half: the forward (which updates
 the batch-norm statistics) and the gradients by parameter name, with the
 metrics; ``apply_gradients`` is the second.
 Everything runs under ``device.strict_fp32`` (no TF32).
+
+Data parallelism (``shard=``, a ``parallel.collectives.BatchShard``): each
+rank of a ``torch.distributed`` group is given its rows of the global batch
+and computes the one-process step over the global batch, as JAX's step on a
+``data`` mesh does: batch norms over the global batch and dropout's global
+draws (``models.layers.global_batch``), mixup pairs drawn over the global
+batch (the images all-gathered), the FaceNet miners over the all-gathered
+embeddings (their gradient routed back to each rank's rows), the loss as
+each rank's share of the global mean, gradients summed over the ranks, and
+loss, accuracy and ``grad_norm`` of the global batch. The generator makes
+the global batch's draws on every rank, so W ranks with one seed train what
+one process trains.
 """
 
 from __future__ import annotations
@@ -40,8 +52,14 @@ from facerecognition_tpu_torch.models.facenet import (
     mine_batch_hard,
     mine_semi_hard,
 )
-from facerecognition_tpu_torch.models.layers import set_stat_updates
+from facerecognition_tpu_torch.models.layers import global_batch, set_stat_updates
 from facerecognition_tpu_torch.ops.matcher import l2_normalize
+from facerecognition_tpu_torch.parallel.collectives import (
+    BatchShard,
+    GatherRows,
+    all_gather_cat,
+    all_reduce_sum,
+)
 from facerecognition_tpu_torch.training.optim import OptaxChain, global_norm
 
 MINING = ("semi_hard", "batch_hard", "random")
@@ -86,10 +104,13 @@ def mixup_draws(generator: Optional[torch.Generator], b: int, alpha: float, devi
     return lam, perm
 
 
-def mixup_batch(images: torch.Tensor, lam: float, perm: torch.Tensor) -> torch.Tensor:
-    """``lam * x + (1 - lam) * x[perm]``."""
+def mixup_batch(
+    images: torch.Tensor, lam: float, perm: torch.Tensor, others: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``lam * x + (1 - lam) * x[perm]``; ``others``: the rows ``x[perm]``
+    given (a data-parallel rank's partners from the gathered batch)."""
     lam = torch.as_tensor(lam, dtype=images.dtype, device=images.device)
-    return lam * images + (1.0 - lam) * images[perm]
+    return lam * images + (1.0 - lam) * (images[perm] if others is None else others)
 
 
 def _named_params(model: torch.nn.Module):
@@ -97,41 +118,66 @@ def _named_params(model: torch.nn.Module):
     return list(names), list(params)
 
 
+def _sum_over_ranks(grads) -> list:
+    """Every gradient summed over the ranks, through one flat buffer."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out
+
+
 def make_arcface_train_step(
     label_smoothing: float = 0.1,
     mixup_alpha: float = 0.0,
     margin_schedule: Optional[Callable[[int], float]] = None,
 ) -> Callable:
-    """``step(state, images, labels, generator=None, mix=None) -> metrics``
-    with ``loss``, ``train_acc`` and ``grad_norm``; images are normalised
-    (B, S, S, 3) float32. ``margin_schedule(step) -> margin``."""
+    """``step(state, images, labels, generator=None, mix=None, shard=None) ->
+    metrics`` with ``loss``, ``train_acc`` and ``grad_norm``; images are
+    normalised (B, S, S, 3) float32 (with ``shard``, this rank's rows).
+    ``margin_schedule(step) -> margin``."""
 
-    def gradients(state: TrainState, images, labels, generator=None, mix=None):
+    def gradients(state: TrainState, images, labels, generator=None, mix=None,
+                  shard: Optional[BatchShard] = None):
         model = state.model.train()
         margin = margin_schedule(state.step) if margin_schedule is not None else None
         use_mixup = mixup_alpha > 0.0
+        total = images.shape[0] if shard is None else shard.total
         if use_mixup:
             lam, perm = mix if mix is not None else mixup_draws(
-                generator, images.shape[0], mixup_alpha, images.device
+                generator, total, mixup_alpha, images.device
             )
-            images = mixup_batch(images, lam, perm)
+            perm = perm.to(images.device)
+            if shard is None:
+                images, partner_labels = mixup_batch(images, lam, perm), labels[perm]
+            else:  # partners anywhere in the global batch
+                mine = shard.take(perm)
+                partner_labels = all_gather_cat(labels)[mine]
+                images = mixup_batch(images, lam, perm, all_gather_cat(images)[mine])
         names, params = _named_params(model)
-        with strict_fp32():
+        with strict_fp32(), global_batch(shard):
             logits, emb = model(images, labels=labels, margin_override=margin, generator=generator)
             loss = softmax_cross_entropy(logits, labels, label_smoothing)
             if use_mixup:
                 loss = lam * loss + (1.0 - lam) * softmax_cross_entropy(
-                    logits, labels[perm], label_smoothing
+                    logits, partner_labels, label_smoothing
                 )
+            if shard is not None:  # this rank's share of the global mean
+                loss = loss * (shard.rows / shard.total)
             grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
                 cos = l2_normalize(emb, dim=1) @ l2_normalize(model.arcface.weight, dim=1).T
-                acc = (torch.argmax(cos, dim=1) == labels).float().mean()
-        metrics = {"loss": loss.detach(), "train_acc": acc, "grad_norm": global_norm(grads)}
+                correct = (torch.argmax(cos, dim=1) == labels).float().sum()
+        loss = loss.detach()
+        if shard is not None:
+            grads = _sum_over_ranks(grads)
+            loss, correct = all_reduce_sum(torch.stack([loss, correct])).unbind()
+        metrics = {"loss": loss, "train_acc": correct / total, "grad_norm": global_norm(grads)}
         return dict(zip(names, grads)), metrics
 
-    def step(state: TrainState, images, labels, generator=None, mix=None):
-        grads, metrics = gradients(state, images, labels, generator, mix)
+    def step(state: TrainState, images, labels, generator=None, mix=None, shard=None):
+        grads, metrics = gradients(state, images, labels, generator, mix, shard)
         apply_gradients(state, grads)
         return metrics
 
@@ -163,16 +209,18 @@ def random_triplets(labels: torch.Tensor, negatives: torch.Tensor):
 def make_facenet_train_step(
     margin: float = 0.5, mining: str = "semi_hard", remat: bool = False
 ) -> Callable:
-    """``step(state, images, labels, generator=None, negatives=None) ->
-    metrics`` with ``loss`` and ``n_triplets``; ``negatives``: the random
-    miner's permutation (drawn from the generator when None)."""
+    """``step(state, images, labels, generator=None, negatives=None,
+    shard=None) -> metrics`` with ``loss`` and ``n_triplets``;
+    ``negatives``: the random miner's permutation of the global batch (drawn
+    from the generator when None)."""
     if mining not in MINING:
         raise ValueError(f"unknown mining {mining}")
 
-    def gradients(state: TrainState, images, labels, generator=None, negatives=None):
+    def gradients(state: TrainState, images, labels, generator=None, negatives=None,
+                  shard: Optional[BatchShard] = None):
         model = state.model.train()
         names, params = _named_params(model)
-        with strict_fp32():
+        with strict_fp32(), global_batch(shard):
             if remat:
                 start = None if generator is None else generator.get_state()
 
@@ -184,6 +232,8 @@ def make_facenet_train_step(
                 emb = torch.utils.checkpoint.checkpoint(forward, images, use_reentrant=False)
             else:
                 emb = model(images, generator=generator)
+            if shard is not None:  # mine over the whole batch's embeddings
+                emb, labels = GatherRows.apply(emb), all_gather_cat(labels)
             mined = emb.detach()
             if mining == "semi_hard":
                 ai, pi, ni, valid = mine_semi_hard(mined, labels, margin)
@@ -192,7 +242,7 @@ def make_facenet_train_step(
             else:
                 if negatives is None:
                     negatives = torch.randperm(
-                        images.shape[0], generator=generator, device=images.device
+                        labels.shape[0], generator=generator, device=images.device
                     )
                 ai, pi, ni, valid = random_triplets(labels, negatives)
             loss = masked_triplet_loss(emb, ai, pi, ni, valid, margin)
@@ -201,11 +251,13 @@ def make_facenet_train_step(
                 grads = torch.autograd.grad(loss, params)
             finally:
                 set_stat_updates(model, True)
+        if shard is not None:
+            grads = _sum_over_ranks(grads)
         metrics = {"loss": loss.detach(), "n_triplets": valid.float().sum()}
         return dict(zip(names, grads)), metrics
 
-    def step(state: TrainState, images, labels, generator=None, negatives=None):
-        grads, metrics = gradients(state, images, labels, generator, negatives)
+    def step(state: TrainState, images, labels, generator=None, negatives=None, shard=None):
+        grads, metrics = gradients(state, images, labels, generator, negatives, shard)
         apply_gradients(state, grads)
         return metrics
 

@@ -12,11 +12,24 @@ and controller states and auto-extended epochs.
     python -m facerecognition_tpu_torch.training.train_arcface \\
         --config configs/arcface_config.yaml --set data.data_dir=<faces>
 
-``train.num_devices``: ``"auto"`` or 1 trains on one card; more raises
-(data-parallel training waits for ROADMAP Queue 1 item 6). Randomness comes
-from ``torch.Generator``s seeded from ``train.seed`` (the JAX trainer's
-``jax.random`` draws differ). ``device=None`` is the card; the CPU tests
-pass ``device="cpu"``.
+``train.num_devices``: data parallelism over the ranks of a
+``torch.distributed`` group, one card a rank (``parallel.resolve_data_mesh``):
+``"auto"`` is the group's world size, one card when no group is up; the
+ranks are started by ``torchrun``, whose environment the trainer reads
+(``parallel.multihost.initialize_from_env``)::
+
+    torchrun --nproc_per_node 2 -m facerecognition_tpu_torch.training.train_arcface \\
+        --config configs/arcface_config.yaml --set train.num_devices=auto
+
+Each rank loads its rows of the global batch, draws the global batch's
+augmentation (and the step's mixup and dropout) from the same generator and
+keeps its rows, and runs the data-parallel step (``training/steps.py``):
+W ranks with one seed train what one process trains. Rank 0 writes the
+checkpoints, the history and the metrics; every rank reads them on resume,
+and the early-stopping and plateau decisions take rank 0's validation
+metrics. Randomness comes from ``torch.Generator``s seeded from
+``train.seed`` (the JAX trainer's ``jax.random`` draws differ).
+``device=None`` is the card; the CPU tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -37,6 +50,10 @@ from facerecognition_tpu_torch.data.sampler import ClassBalancedSampler
 from facerecognition_tpu_torch.device import DeviceLike, resolve_device
 from facerecognition_tpu_torch.models.arcface import ArcFaceModel, freeze_mask
 from facerecognition_tpu_torch.models.layers import init_like_flax
+from facerecognition_tpu_torch.parallel.collectives import BatchShard, batch_shard, broadcast_
+from facerecognition_tpu_torch.parallel.mesh import resolve_data_mesh
+from facerecognition_tpu_torch.parallel.multihost import initialize_from_env
+from facerecognition_tpu_torch.parallel.sharding import replicate
 from facerecognition_tpu_torch.training.checkpoint import CheckpointManager
 from facerecognition_tpu_torch.training.config import apply_dotted_overrides, deep_merge, load_config
 from facerecognition_tpu_torch.training.optim import OptaxChain
@@ -89,7 +106,7 @@ DEFAULT_CONFIG: dict[str, Any] = {
         "early_stopping_metric": "ver_acc",  # ver_acc | val_loss | train_loss
         "plateau_factor": 0.1,
         "plateau_patience": 5,
-        "num_devices": "auto",  # "auto" or 1: one card; more waits for data parallelism
+        "num_devices": "auto",  # "auto": the torch.distributed group's ranks (one card without one)
         "seed": 0,
     },
     "eval": {"num_pairs": 2000, "batch_size": 256},
@@ -110,15 +127,48 @@ def resolve_config(config, overrides, defaults: dict) -> dict:
     return apply_dotted_overrides(config, overrides) if overrides else config
 
 
-def check_single_card(num_devices) -> None:
-    """``train.num_devices``: "auto", None or 1 is one card; more raises."""
-    if num_devices in ("auto", None, 0, 1, False):
-        return
-    if int(num_devices) > 1:
-        raise NotImplementedError(
-            f"train.num_devices={num_devices}: data-parallel training is not ported yet "
-            "(ROADMAP Queue 1 item 6, parallel/*); use 'auto' or 1 for one card"
-        )
+def data_parallel(num_devices, batch_size: int, device: DeviceLike):
+    """``train.num_devices`` → (the device, the ``data`` mesh, this rank's
+    ``BatchShard``); mesh and shard None on one card. A group is started
+    from ``torchrun``'s environment when one is asked for (gloo for
+    ``device="cpu"``), before the device is resolved: it sets the rank's
+    card."""
+    if num_devices not in (None, 0, 1, False):
+        cpu = device is not None and torch.device(device).type == "cpu"
+        initialize_from_env("gloo" if cpu else None)
+    dev = resolve_device(device)
+    mesh = resolve_data_mesh(num_devices, batch_size, dev)
+    return dev, mesh, (batch_shard(batch_size) if mesh is not None else None)
+
+
+def announce_data_parallel(shard: Optional[BatchShard]) -> None:
+    """A trainer's command line says when it trains on a group."""
+    if shard is not None:
+        print(f"data-parallel: rank {shard.rank} of {shard.world} ({torch.distributed.get_backend()})",
+              flush=True)
+
+
+def rank_rows(sampler, shard: Optional[BatchShard]):
+    """This rank's rows of each global batch of indices."""
+    for idx in sampler:
+        yield idx if shard is None else idx[shard.start:shard.start + shard.rows]
+
+
+def shard_draws(draws: dict, shard: Optional[BatchShard]) -> dict:
+    """This rank's rows of the global batch's augmentation draws."""
+    return draws if shard is None else {k: shard.take(v) for k, v in draws.items()}
+
+
+def rank0_value(value: float, shard: Optional[BatchShard], device) -> float:
+    """``value`` as rank 0 has it, on every rank (one process: itself)."""
+    if shard is None:
+        return value
+    return float(broadcast_(torch.tensor([value], dtype=torch.float64, device=device))[0])
+
+
+def barrier(shard: Optional[BatchShard]) -> None:
+    if shard is not None:
+        torch.distributed.barrier()
 
 
 def compute_verification_accuracy(
@@ -228,8 +278,10 @@ class ArcFaceTrainer:
         device: DeviceLike = None,
     ):
         self.config = resolve_config(config, overrides, DEFAULT_CONFIG)
-        check_single_card(self.config["train"].get("num_devices", 1))
-        self.device = resolve_device(device)
+        t = self.config["train"]
+        self.device, self.mesh, self.shard = data_parallel(
+            t.get("num_devices", 1), t["batch_size"], device
+        )
         self.history: list[dict] = []
         self.epoch = 0
         self.global_step = 0
@@ -278,6 +330,8 @@ class ArcFaceTrainer:
         )
         init_like_flax(model, torch.Generator().manual_seed(self.config["train"]["seed"]), ("fc",))
         self.model = model.to(self.device)
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            replicate(list(self.model.state_dict().values()), self.mesh)
 
     def _steps_per_epoch(self) -> int:
         t = self.config["train"]
@@ -296,10 +350,14 @@ class ArcFaceTrainer:
             margin_schedule=margin_schedule_of(self.config, self._steps_per_epoch()),
         )
 
+        shard = self.shard
+
         def step_with_aug(state, images_u8, labels, generator):
             b, s = images_u8.shape[:2]
-            images = apply_augment(images_u8, augment_draws(generator, b, s, tier), tier)
-            return raw_step(state, normalize_u8(images), labels, generator)
+            total = b if shard is None else shard.total
+            draws = shard_draws(augment_draws(generator, total, s, tier), shard)
+            images = apply_augment(images_u8, draws, tier)
+            return raw_step(state, normalize_u8(images), labels, generator, shard=shard)
 
         self._train_step = step_with_aug
         raw_eval = make_arcface_eval_step()
@@ -322,7 +380,8 @@ class ArcFaceTrainer:
 
             sampler = random_batches()
         return BatchLoader(
-            self.train_index, sampler, image_size=d["image_size"], n_workers=d["num_workers"]
+            self.train_index, rank_rows(sampler, self.shard), image_size=d["image_size"],
+            n_workers=d["num_workers"],
         )
 
     def _generator(self, salt: int) -> torch.Generator:
@@ -413,6 +472,7 @@ class ArcFaceTrainer:
                 metric = train_metrics["train_loss"]
             else:
                 raise ValueError(f"unknown early_stopping_metric {name!r}")
+            metric = rank0_value(metric, self.shard, self.device)
             improved = metric > self.best_metric if self.metric_mode == "max" else metric < self.best_metric
             if improved:
                 self.best_metric = metric
@@ -422,7 +482,8 @@ class ArcFaceTrainer:
                 record["lr_scale"] = self._apply_plateau_scale(self.plateau.update(metric))
             self.history.append(record)
             self._write_history()
-            self.metrics_logger.log(self.global_step, record, prefix="arcface/")
+            if self.shard is None or self.shard.rank == 0:
+                self.metrics_logger.log(self.global_step, record, prefix="arcface/")
             self.save_checkpoint("last")
             if ck["save_every_epochs"] and (self.epoch + 1) % ck["save_every_epochs"] == 0:
                 self.save_checkpoint(f"epoch_{self.epoch}")
@@ -441,10 +502,18 @@ class ArcFaceTrainer:
     # -- persistence --------------------------------------------------------
 
     def _write_history(self):
+        if self.shard is not None and self.shard.rank:
+            return
         with open(os.path.join(self.ckpt.directory, "training_history.json"), "w") as f:
             json.dump(self.history, f, indent=2)
 
     def save_checkpoint(self, tag: str):
+        """Rank 0 writes; every rank waits for it."""
+        if self.shard is None or self.shard.rank == 0:
+            self._save_checkpoint(tag)
+        barrier(self.shard)
+
+    def _save_checkpoint(self, tag: str):
         tree = {
             "model": self.model.state_dict(),
             "opt_state": self.state.tx.state_dict(),
@@ -511,6 +580,7 @@ def main(argv: Optional[list[str]] = None):
     parser.add_argument("--device", default=None, help="default: the CUDA card")
     args = parser.parse_args(argv)
     trainer = ArcFaceTrainer(args.config, args.set, device=args.device)
+    announce_data_parallel(trainer.shard)
     if args.resume:
         trainer.resume(args.resume)
     history = trainer.train()

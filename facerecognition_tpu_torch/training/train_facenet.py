@@ -14,7 +14,10 @@ last checkpoints, early stopping, history JSON, d(a,p) / d(a,n) metrics and
 ``data.resident``: ``"auto"`` decodes the train split once into one uint8
 tensor on the card when it is at most 4 GiB and gathers each batch there by
 index (``steps.make_resident_step``); False streams batches through the
-``BatchLoader``. ``train.num_devices`` as in ``train_arcface``.
+``BatchLoader``. ``train.num_devices`` as in ``train_arcface`` (the global
+batch is P×K): on a ``data`` mesh the streaming loader is kept, as in JAX,
+and each rank loads its rows; the miners run over the whole batch's
+embeddings.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ from facerecognition_tpu_torch.data.datasets import (
 )
 from facerecognition_tpu_torch.data.loader import BatchLoader, _load_resize
 from facerecognition_tpu_torch.data.sampler import PKSampler
-from facerecognition_tpu_torch.device import DeviceLike, resolve_device, strict_fp32
+from facerecognition_tpu_torch.device import DeviceLike, strict_fp32
 from facerecognition_tpu_torch.models.facenet import FaceNetModel
 from facerecognition_tpu_torch.models.layers import init_like_flax
+from facerecognition_tpu_torch.parallel.sharding import replicate
 from facerecognition_tpu_torch.training.checkpoint import CheckpointManager
 from facerecognition_tpu_torch.training.optim import OptaxChain
 from facerecognition_tpu_torch.training.schedules import EarlyStopping, build_schedule
@@ -50,10 +54,15 @@ from facerecognition_tpu_torch.training.steps import (
     make_resident_step,
 )
 from facerecognition_tpu_torch.training.train_arcface import (
-    check_single_card,
+    announce_data_parallel,
+    barrier,
     compute_verification_accuracy,
+    data_parallel,
     normalize_u8,
+    rank0_value,
+    rank_rows,
     resolve_config,
+    shard_draws,
 )
 from facerecognition_tpu_torch.utils.serialization import load_variables
 
@@ -109,8 +118,10 @@ class FaceNetTrainer:
         device: DeviceLike = None,
     ):
         self.config = resolve_config(config, overrides, DEFAULT_CONFIG)
-        check_single_card(self.config["train"].get("num_devices", 1))
-        self.device = resolve_device(device)
+        t = self.config["train"]
+        self.device, self.mesh, self.shard = data_parallel(
+            t.get("num_devices", 1), t["p_identities"] * t["k_images"], device
+        )
         self.history: list[dict] = []
         self.epoch = 0
         self.best_val_loss = np.inf
@@ -134,6 +145,8 @@ class FaceNetTrainer:
         if t.get("init_from"):
             self._load_init(model, t["init_from"])
         self.model = model.to(self.device)
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            replicate(list(self.model.state_dict().values()), self.mesh)
         spe = self._steps_per_epoch()
         schedule = build_schedule(
             t["lr"],
@@ -147,11 +160,14 @@ class FaceNetTrainer:
             margin=float(t["margin"]), mining=t["mining"], remat=bool(t.get("remat", False))
         )
         tier = d["augmentation"]
+        shard = self.shard
 
         def step_with_aug(state, images_u8, labels, generator):
             b, s = images_u8.shape[:2]
-            images = apply_augment(images_u8, augment_draws(generator, b, s, tier), tier)
-            return raw_step(state, normalize_u8(images), labels, generator)
+            total = b if shard is None else shard.total
+            draws = shard_draws(augment_draws(generator, total, s, tier), shard)
+            images = apply_augment(images_u8, draws, tier)
+            return raw_step(state, normalize_u8(images), labels, generator, shard=shard)
 
         self._train_step = step_with_aug
         s = d["image_size"]
@@ -197,7 +213,7 @@ class FaceNetTrainer:
             return True
         d = self.config["data"]
         mode = d.get("resident", "auto")
-        if mode is False:
+        if mode is False or self.mesh is not None:  # a mesh streams, as in JAX
             return False
         n, s = len(self.train_index), d["image_size"]
         if mode == "auto" and n * s * s * 3 > RESIDENT_MAX_BYTES:
@@ -234,7 +250,7 @@ class FaceNetTrainer:
                 n_triplets.append(float(metrics["n_triplets"]))
         else:
             loader = BatchLoader(
-                self.train_index, sampler, image_size=c["data"]["image_size"],
+                self.train_index, rank_rows(sampler, self.shard), image_size=c["data"]["image_size"],
                 n_workers=c["data"]["num_workers"],
             )
             it = iter(loader)
@@ -310,19 +326,27 @@ class FaceNetTrainer:
             record = {"epoch": self.epoch}
             record.update(self.train_epoch())
             record.update(self.validate())
+            val_loss = rank0_value(record["val_loss"], self.shard, self.device)
             self.history.append(record)
-            with open(os.path.join(self.ckpt.directory, "training_history.json"), "w") as f:
-                json.dump(self.history, f, indent=2)
-            if record["val_loss"] < self.best_val_loss:
-                self.best_val_loss = record["val_loss"]
+            if self.shard is None or self.shard.rank == 0:
+                with open(os.path.join(self.ckpt.directory, "training_history.json"), "w") as f:
+                    json.dump(self.history, f, indent=2)
+            if val_loss < self.best_val_loss:
+                self.best_val_loss = val_loss
                 self._save("best")
             self._save("last")
             self.epoch += 1
-            if self.early_stopping(record["val_loss"]):
+            if self.early_stopping(val_loss):
                 break
         return self.history
 
     def _save(self, tag: str):
+        """Rank 0 writes; every rank waits for it."""
+        if self.shard is None or self.shard.rank == 0:
+            self._write(tag)
+        barrier(self.shard)
+
+    def _write(self, tag: str):
         self.ckpt.save(
             tag,
             {
@@ -352,6 +376,7 @@ def main(argv: Optional[list[str]] = None):
     if args.mining:
         overrides.append(f"train.mining={args.mining}")
     trainer = FaceNetTrainer(args.config, overrides, device=args.device)
+    announce_data_parallel(trainer.shard)
     history = trainer.train()
     print(json.dumps(history[-1] if history else {}, indent=2))
 

@@ -22,6 +22,7 @@ from facerecognition_tpu.data import native_decode as jnd
 from facerecognition_tpu.utils import imageio as jimageio
 from facerecognition_tpu_torch.data import native_decode as pnd
 from facerecognition_tpu_torch.utils import imageio as pimageio
+from test_torch_jax_native import jax_native_decoder
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -198,8 +199,7 @@ def test_bytes_equal_paths(files):
 
 def test_native_decode_mem_agrees_with_jax_native(files):
     """The JAX package's libpng/libjpeg build reads the same pixels."""
-    if not jnd.available():
-        pytest.skip("the JAX package's native decoder does not build here")
+    jax_native_decoder()  # built once under the suite's lock
     for name, path in files.items():
         with open(path, "rb") as f:
             data = f.read()
@@ -227,10 +227,9 @@ def test_decode_batch_equals_jax_native(files):
         got, ok = pnd.decode_batch(paths, size, n_threads=3)
         assert ok.tolist() == [p != "missing.png" for p in paths]
         assert not got[3].any()
-        if jnd.available():
-            want, want_ok = jnd.decode_batch(paths, size, n_threads=2)
-            np.testing.assert_array_equal(ok, want_ok)
-            np.testing.assert_array_equal(got, want)
+        want, want_ok = jax_native_decoder().decode_batch(paths, size, n_threads=2)
+        np.testing.assert_array_equal(ok, want_ok)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_other_formats_raise_naming_the_format(tmp_path, rng):

@@ -156,8 +156,11 @@ def _entry_points():
     from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
     from facerecognition_tpu_torch.preprocessing.celeba import CelebAConfig, CelebAPreprocessor
     from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.parallel import ShardedGallery, create_mesh
     from facerecognition_tpu_torch.training import train_detector as td
     from facerecognition_tpu_torch.training import train_synthid as ts
+    from facerecognition_tpu_torch.training.train_arcface import ArcFaceTrainer
+    from facerecognition_tpu_torch.training.train_facenet import FaceNetTrainer
 
     def driver(name):
         module = importlib.import_module(f"facerecognition_tpu_torch.{name}")
@@ -180,13 +183,23 @@ def _entry_points():
             log=lambda *_: None,
         ),
         "CelebAPreprocessor": lambda: CelebAPreprocessor(CelebAConfig("celeba", "out")),
+        "create_mesh": lambda: create_mesh(gallery=-1),
+        "ShardedGallery": lambda: ShardedGallery(create_mesh(gallery=-1)),
+        **{name: (lambda t=t: t({"data": {"data_dir": "missing"}, "train": {"num_devices": "auto"}}))
+           for name, t in TRAINERS(ArcFaceTrainer, FaceNetTrainer).items()},
         **{name: driver(name) for name in DRIVERS},
     }
 
 
+def TRAINERS(arcface=None, facenet=None) -> dict:
+    """The data-parallel trainers' entries: ``train.num_devices`` "auto"."""
+    return {"ArcFaceTrainer(num_devices)": arcface, "FaceNetTrainer(num_devices)": facenet}
+
+
 @pytest.mark.parametrize("entry", ["FaceDetector", "Embedder", "Gallery", "RecognitionEngine",
                                    "train_detector_curriculum", "train_detector_synthetic",
-                                   "train_synthid", "CelebAPreprocessor", *DRIVERS])
+                                   "train_synthid", "CelebAPreprocessor", "create_mesh",
+                                   "ShardedGallery", *TRAINERS(), *DRIVERS])
 def test_entry_points_default_to_the_card(entry):
     """No device argument means CUDA: without a card that raises, and asks
     for device='cpu'; nothing moves to the CPU silently. (A trainer returns
@@ -194,8 +207,8 @@ def test_entry_points_default_to_the_card(entry):
     names of files that do not exist: it must refuse before it reads one.)"""
     make = _entry_points()[entry]
     if torch.cuda.is_available():
-        if entry in DRIVERS:
-            pytest.skip("a driver on a card needs its data")
+        if entry in DRIVERS or entry in TRAINERS():
+            pytest.skip("a driver or a trainer on a card needs its data")
         assert getattr(make(), "device", torch.device("cuda")).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -279,7 +292,7 @@ def _meta_frames(dtype=torch.uint8, shape=(2, 32, 32, 3)):
          TypeError),
         (lambda: ws.bilinear_resize(_meta_frames(shape=(2, 32, 32, 4)), 16, 16), ValueError),
         (lambda: ws.bilinear_resize(_meta_frames().transpose(1, 2), 16, 16), ValueError),
-        (lambda: ws.bilinear_resize(_meta_frames(), 16, 16, fast="int8"), NotImplementedError),
+        (lambda: ws.bilinear_resize(_meta_frames(), 16, 16, fast="int4"), ValueError),
         (lambda: ws.align_crop(_meta_frames(), torch.zeros(2, 3, 5, 2), 16), ValueError),  # mixed devices
         (lambda: ws.align_crop_window(_meta_frames(torch.float16), torch.zeros(2, 3, 5, 2, device="meta"), 16, 24),
          TypeError),
@@ -357,7 +370,7 @@ def _meta_maps(n=2, shape=(2, 3)):
         (lambda: ws.affine_warp(_meta_frames(), _meta_maps(shape=(3, 3)), 16, 16), ValueError),
         (lambda: ws.affine_warp(_meta_frames(), _meta_maps(3), 16, 16), ValueError),
         (lambda: ws.affine_warp(_meta_frames(), torch.zeros(2, 2, 3), 16, 16), ValueError),  # mixed devices
-        (lambda: ws.affine_warp(_meta_frames(), _meta_maps(), 16, 16, fast="int8"), NotImplementedError),
+        (lambda: ws.affine_warp(_meta_frames(), _meta_maps(), 16, 16, fast="int4"), ValueError),
         (lambda: ws._launch(_meta_frames(), 16, 16, False, torch.zeros(2, 1, 5, 2, device="meta"),
                             matrices=_meta_maps()), ValueError),  # maps and landmarks together
     ],

@@ -18,7 +18,8 @@ jimage = importlib.import_module("facerecognition_tpu.ops.image")
 jumeyama = importlib.import_module("facerecognition_tpu.ops.umeyama")
 jwarp = importlib.import_module("facerecognition_tpu.ops.warp_mxu")
 from facerecognition_tpu_torch.ops import image as timage
-from facerecognition_tpu_torch.ops import umeyama as tumeyama
+# the port's ``ops`` binds the function ``umeyama``, as JAX's does
+tumeyama = importlib.import_module("facerecognition_tpu_torch.ops.umeyama")
 from facerecognition_tpu_torch.ops import warp_mxu as twarp
 
 
@@ -148,7 +149,10 @@ def test_align_crop_mxu_matches_jax(fast, seed):
 
 
 def test_affine_warp_rejects_int8_mode(rng):
+    """The int8 mode is ported (``test_torch_warp_int8.py`` holds it to
+    JAX); a mode that is none of False, True and "int8" is refused."""
     imgs = np.zeros((1, 8, 8, 3), np.float32)
     ms = np.eye(2, 3, dtype=np.float32)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twarp.affine_warp_mxu_batch(T(imgs), T(ms), 8, 8, fast="int8")
+    with pytest.raises(ValueError, match="False, True or 'int8'"):
+        twarp.affine_warp_mxu_batch(T(imgs), T(ms), 8, 8, fast="int4")
+    assert twarp.affine_warp_mxu_batch(T(imgs), T(ms), 8, 8, fast="int8").shape == (1, 8, 8, 3)

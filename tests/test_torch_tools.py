@@ -198,16 +198,18 @@ def test_gray_resize_is_cv2_resize(src, dst):
 
 
 def test_int8_warp_mode_message():
-    """The int8 warp mode is not ported: both wrappers say so and where it
-    waits (not the crowd path, which has been in the port since PR 6)."""
-    frames = torch.zeros(1, 8, 8, 3)
+    """The int8 warp mode runs through both wrappers (the resize takes it as
+    JAX does: its bf16 path), and a mode that is none of False, True and
+    "int8" is refused by name."""
+    frames = torch.arange(8 * 8 * 3, dtype=torch.float32).reshape(1, 8, 8, 3)
     ms = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0]]])
-    for call in (lambda: warp_mxu.affine_warp_mxu_batch(frames, ms, 8, 8, fast="int8"),
-                 lambda: warp_sample.affine_warp(frames, ms, 8, 8, fast="int8"),
-                 lambda: warp_sample.bilinear_resize(frames, 4, 4, fast="int8")):
-        with pytest.raises(NotImplementedError) as err:
+    got = warp_sample.affine_warp(frames, ms, 8, 8, fast="int8")
+    assert torch.equal(got, warp_mxu.affine_warp_mxu_batch(frames, ms, 8, 8, fast="int8"))
+    assert torch.equal(got, frames)  # the identity map keeps every level
+    assert torch.equal(warp_sample.bilinear_resize(frames, 4, 4, fast="int8"),
+                       warp_sample.bilinear_resize(frames, 4, 4, fast=True))
+    for call in (lambda: warp_mxu.affine_warp_mxu_batch(frames, ms, 8, 8, fast="int4"),
+                 lambda: warp_sample.affine_warp(frames, ms, 8, 8, fast="int4"),
+                 lambda: warp_sample.bilinear_resize(frames, 4, 4, fast="bf16")):
+        with pytest.raises(ValueError, match="False, True or 'int8'"):
             call()
-        assert str(err.value) == warp_mxu.INT8_MODE_NOT_PORTED
-    assert "ROADMAP Queue 1 item 5" in warp_mxu.INT8_MODE_NOT_PORTED
-    assert "no JAX engine uses it" in warp_mxu.INT8_MODE_NOT_PORTED
-    assert "crowd path" not in warp_mxu.INT8_MODE_NOT_PORTED

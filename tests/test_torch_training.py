@@ -20,6 +20,7 @@ from PIL import Image
 
 from facerecognition_tpu.data.loader import BatchLoader as JaxBatchLoader
 from facerecognition_tpu.data.loader import _load_resize as jax_load_resize
+from test_torch_jax_native import jax_native_decoder
 from facerecognition_tpu.data.sampler import ClassBalancedSampler as JaxClassBalanced
 from facerecognition_tpu.data.sampler import PKSampler as JaxPK
 from facerecognition_tpu.models import arcface as jax_arcface
@@ -157,10 +158,12 @@ def test_samplers_equal_jax(image_tree):
 def test_batch_loader_equals_jax(image_tree, size):
     """The same batches as the JAX loader's native path, bit for bit, with
     every file resized (72² → 64² and 80²)."""
+    jax_native_decoder()  # the suite's workers build it under one lock
     index = FolderDataset(image_tree)
     batches = [np.array([0, 5, 11, 35]), np.array([7, 7, 20]), np.arange(12)]
     port = BatchLoader(index, iter(batches), image_size=size, n_workers=2)
     ref = JaxBatchLoader(index, iter(batches), image_size=size, n_workers=2)
+    assert ref._native is not None  # the JAX loader's native path, not PIL
     got, want = list(port), list(ref)
     assert len(got) == len(want) == 3
     for (gi, gl), (wi, wl) in zip(got, want):
@@ -597,10 +600,13 @@ def test_arcface_trainer_rejects_data_parallel(image_tree, tmp_path):
     from facerecognition_tpu_torch.training.train_arcface import ArcFaceTrainer
     from facerecognition_tpu_torch.training.train_facenet import FaceNetTrainer
 
+    # Without a torch.distributed group of that many ranks (torchrun), a
+    # data-parallel count is refused: processes cannot be dropped as JAX
+    # drops devices (the data-parallel trainers: test_torch_parallel_train.py).
     for n in (2, 8):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="torch.distributed group of"):
             ArcFaceTrainer(_arc_cfg(image_tree, str(tmp_path / "a"), num_devices=n), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="torch.distributed group of"):
             FaceNetTrainer({"data": {"data_dir": image_tree}, "train": {"num_devices": n}}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from facerecognition_tpu_torch.ops import umeyama as tumeyama
+# the port's ``ops`` binds the function ``umeyama``, as JAX's does
+tumeyama = importlib.import_module("facerecognition_tpu_torch.ops.umeyama")
 from facerecognition_tpu_torch.ops import warp_mxu as twarp
 from facerecognition_tpu_torch.ops import warp_sample as ws
 from facerecognition_tpu_torch.ops.image import normalize_imagenet_style
@@ -411,5 +412,5 @@ def test_wrappers_check_their_arguments():
         ws._check_landmarks(frames, torch.empty(3, 1, 5, 2, device="meta"))
     with pytest.raises(TypeError, match="uint8 or float32"):
         ws._check_frames(torch.empty(2, 64, 64, 3, dtype=torch.int32, device="meta"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ws.detector_input(frames, 32, fast="int8")
+    with pytest.raises(ValueError, match="False, True or 'int8'"):
+        ws.detector_input(frames, 32, fast="int4")

@@ -7,7 +7,9 @@ taps each, the same roundings); it is held against the two-pass plain
 version here so a wrong design fails before it reaches the card. With bf16
 weights (``fast``) every product is exact, so the two must agree bit for
 bit; in float32 the products round, and the matrix products may add in
-another order: within 1e-3 levels.
+another order: within 1e-3 levels. In the int8 mode (``fast="int8"``) every
+sum is an integer below 2^24, and each vertical sample is rounded to a level
+before the horizontal blend: bit for bit too.
 """
 
 import numpy as np
@@ -39,9 +41,14 @@ def four_tap(frames, coef, frame_of, origin, region, out_h, out_w, fast, ypos=No
     else:
         xs = xpos[None, None, :].expand(s, out_h, out_w)
 
+    int8 = fast == "int8"
+
     def weight(pos, tap, hi):
         w = torch.clamp(1.0 - (pos - tap).abs(), min=0.0) * ((pos >= lo) & (pos <= hi))
-        return _bf16(w) if fast else w
+        return torch.round(w * 127.0) if int8 else _bf16(w) if fast else w
+
+    def level(v):
+        return torch.clamp(torch.round(v), 0.0, 255.0)
 
     out = torch.zeros(s, out_h, out_w, 3)
     f = frame_of[:, None, None]
@@ -61,11 +68,11 @@ def four_tap(frames, coef, frame_of, origin, region, out_h, out_w, fast, ypos=No
             gy = (y.clamp(0, region[0] - 1) + origin[:, 1, None, None]).long()
             gx = (x.clamp(0, region[1] - 1) + origin[:, 0, None, None]).long()
             px = frames[f, gy, gx]
-            px = _bf16(px) if fast else px
+            px = level(px) if int8 else _bf16(px) if fast else px
             mid = fma(wy[..., None], px, mid)
-        mid = _bf16(mid) if fast else mid
+        mid = level(wm.div127(mid)) if int8 else _bf16(mid) if fast else mid
         out = fma(wx[..., None], mid, out)
-    return out
+    return wm.div127(out) if int8 else out
 
 
 def _frames(rng, b, h, w):
@@ -94,7 +101,7 @@ def _check(got, ref, fast):
         assert (got - ref).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("fast", [False, True, "int8"])
 @pytest.mark.parametrize("shape", [(64, 80), (96, 96)])
 def test_four_taps_give_the_two_pass_align_warp(rng, fast, shape):
     """Every slot from its whole frame (the repeat path and the one-face
@@ -113,7 +120,7 @@ def test_four_taps_give_the_two_pass_align_warp(rng, fast, shape):
     _check(got, ws.align_crop(frames, lms, 48, fast), fast)  # the wrapper's plain route
 
 
-@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("fast", [False, True, "int8"])
 def test_four_taps_give_the_two_pass_window_warp(rng, fast):
     """The crowd window: each slot reads its crop in place, zero outside."""
     b, m, side = 2, 3, 120
@@ -139,7 +146,7 @@ def test_four_taps_give_the_two_pass_resize(rng, fast, shape, out):
     _check(got, wm.bilinear_resize_mxu_batch(frames, *out, fast), fast)
 
 
-@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("fast", [False, True, "int8"])
 def test_four_taps_give_the_two_pass_affine_warp(rng, fast):
     """An arbitrary similarity with a shear of the row taps and samples
     outside the frame."""
