@@ -205,8 +205,23 @@ Phases, each printing its wall seconds:
     the checkpoints within 2e-3 of scale. The ArcFace step of phase 16 in a
     1-rank NCCL group in the phase's process, data-parallel and one-card,
     timed in turns.
+20. dtype: the models' compute dtype (``dtype_phase``, in a process of its
+    own). ``warp_sample``'s float32, bf16 and float16 model inputs
+    (``detector_input`` B 128 256² → 128², ``embedder_input`` one face B 128
+    → 112² and 160², the window B 32 x M 4 → 112²; fast on) against the
+    plain version on the card bit for bit, one kernel per call, timed. The
+    shipped v4 detector and ultraslim ArcFace, both bf16, serving 16 frames
+    rendered by the port's ``training/synthetic_faces`` through
+    ``MicroBatcher`` (one face and M = 4, ``stream`` and ``int8``; a
+    100k-row gallery with each face's own embedding planted: every top-1 is
+    its row); the same frames through the CPU port's bf16 plain path and
+    the card's float32 engine: the embeddings' min and mean cosine (faces
+    paired by box). FaceNet bf16 one face the same way. ``detect_all`` and
+    ``recognize`` in bf16 against the CPU. One fused call at B = 128: no
+    cast of a model input in the bf16 call (profiler shapes), bf16 against
+    float32 profiled and timed in alternating turns.
 
-Phases 7-18 are the paths: every kernel counter is set to 0 just before
+Phases 7-20 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -4085,6 +4100,353 @@ def parallel_phase(card: str, device) -> dict:
     return out
 
 
+# -- the models' compute dtype ------------------------------------------------------
+
+#: The dtype phase's warp shapes: (name, frame side, frames, slots per frame,
+#: mode, output side), the model inputs of the bf16 serving path.
+DTYPE_WARP_CASES = (
+    ("detector_input", 256, WARP_B, 1, "resize", DET_SIZE),
+    ("embedder_input", 256, WARP_B, 1, "align", 112),
+    ("embedder_input_160", 256, WARP_B, 1, "align", 160),
+    ("embedder_input_window", 256, 32, CROWD_FACES, "window", 112),
+)
+#: bf16 embedding cosines, card against the CPU's bf16 plain path (serving and
+#: staged; least reading 0.99970 on an H100) and against the card's float32
+#: (least reading 0.99962). They hold the bf16 path's rounding, not its dtype:
+#: float32 in place of bf16 would pass them too. What shows the dtype is
+#: ``dtype_engine``'s dtypes, ``conv_output_dtypes``, the serving run's
+#: warp launches by kind and ``input_casts``.
+DTYPE_MIN_COS_CPU = 0.9995
+DTYPE_MIN_COS_F32 = 0.999
+DTYPE_CONF_TOL = 2e-2  # staged confidences (cosines) card against CPU in bf16
+#: detect_all boxes card against CPU in bf16, frame pixels at 256²: the box
+#: regression in bf16 (an ulp is 0.4% of a value), doubled from the
+#: detector's 128² (1.15 px measured on an H100)
+DTYPE_BOX_PX = 2.0
+DTYPE_FACE_SCORE = 0.5  # faces compared across engines: detector score at least this
+ARCFACE_WEIGHTS = "arcface_synthid9k_ultraslim_512.msgpack"
+DETECTOR_WEIGHTS = "detector_v4_128.msgpack"
+
+
+def dtype_warp_checks(device) -> dict:
+    """``warp_sample`` writing the model inputs in bf16 and float16 (fast on,
+    the engine's mode): bit for bit against its plain version on the card at
+    the serving shapes, one kernel per call (no cast after it), timed beside
+    the float32 output of the same call; the bound counts the 2-byte
+    output."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.ops import warp_sample as ws
+
+    rng = np.random.default_rng(SEED + 40)
+    lines = {}
+    for name, side, b, m, mode, out in DTYPE_WARP_CASES:
+        frames, lms = warp_inputs(rng, side, b, m, device)
+        lms = lms * (DET_SIZE / side)  # the engine hands the warp detector pixels
+        window = 160 if mode == "window" else None
+        lms_frame = ws.scale_landmarks(lms, side, side, DET_SIZE)
+        touched = touched_pixels(frames, lms_frame, m, mode, out) * 3
+        for dtype in ("float32", "bfloat16", "float16"):
+            if mode == "resize":
+                kernel = lambda: ws.detector_input(frames, out, True, out_dtype=dtype)  # noqa: E731
+                plain = lambda: ws.detector_input_plain(frames, out, True, dtype)  # noqa: E731
+            else:
+                kernel = lambda: ws.embedder_input(  # noqa: E731
+                    frames, lms, DET_SIZE, out, window, True, out_dtype=dtype)
+                plain = lambda: ws.embedder_input_plain(  # noqa: E731
+                    frames, lms, DET_SIZE, out, window, True, dtype)
+            before = ws.launches.count
+            got = kernel()
+            launched = ws.launches.count - before
+            ref = plain()
+            torch.cuda.synchronize()
+            check(launched == 1, f"warp_sample {name} out_dtype={dtype}: {launched} launches for one call")
+            check(got.dtype == ref.dtype == getattr(torch, dtype), f"{name}: {got.dtype}, {ref.dtype}")
+            check(torch.equal(got, ref), f"warp_sample {name} out_dtype={dtype} differs from the plain version")
+            line = {"case": name, "out_dtype": dtype, "frames": b, "side": side, "out": out,
+                    "slots": b * m, "max_abs_err": 0.0, "launches": launched}
+            line["ms"] = statistics.median(cuda_ms(kernel, 20) for _ in range(3))
+            line["plain_ms"] = cuda_ms(plain, 3, 1)
+            moved = got.numel() * got.element_size() + touched
+            moved += 0 if mode == "resize" else lms.numel() * 4
+            line["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+            line["bound_by"] = "bytes"
+            line["library_ms"] = None
+            _, line["device_us"] = kernel_trace(kernel, "warp_sample")
+            print("warp_sample dtype", json.dumps(line), flush=True)
+            lines[f"{name}/{dtype}"] = line
+    return lines
+
+
+def rendered_frames(n: int, side: int, max_faces: int, seed: int):
+    """(n, side, side, 3) uint8 scenes of the port's renderer with up to
+    ``max_faces`` faces each."""
+    import numpy as np
+
+    from facerecognition_tpu_torch.training.synthetic_faces import scene_batch
+
+    imgs = scene_batch(np.random.default_rng(seed), n, side, max_faces=max_faces)[0]
+    return np.clip(np.rint(imgs), 0, 255).astype(np.uint8)
+
+
+def dtype_engine(model_type: str, dtype: str, device):
+    """A ``RecognitionEngine`` with the shipped v4 detector and the shipped
+    embedder of ``model_type``, both computing in ``dtype``."""
+    import os
+
+    import torch
+
+    from facerecognition_tpu_torch.inference import extract_embeddings as ee
+    from facerecognition_tpu_torch.inference.engine import RecognitionEngine
+    from facerecognition_tpu_torch.preprocessing.face_detector import (
+        FaceDetector,
+        default_detector_checkpoint,
+    )
+
+    det_path = default_detector_checkpoint()
+    check(os.path.basename(det_path) == DETECTOR_WEIGHTS, f"detector weights {det_path}")
+    detector = FaceDetector(confidence_threshold=0.0, min_face_size=0, max_faces=4,
+                            dtype=dtype, device=device)
+    if model_type == "facenet":
+        path = ee.default_facenet_checkpoint()
+        check(os.path.basename(path) == FACENET_WEIGHTS, f"FaceNet weights {path}")
+        embedder = ee.load_facenet_model(path, dtype=dtype, device=device)
+    else:
+        path = ee.default_arcface_checkpoint()
+        check(os.path.basename(path) == ARCFACE_WEIGHTS, f"ArcFace weights {path}")
+        embedder = ee.load_arcface_model(path, dtype=dtype, device=device)
+    check(embedder.config.dtype == detector.dtype == getattr(torch, dtype),
+          f"{model_type} engine in {embedder.config.dtype} / {detector.dtype}, not {dtype}")
+    return RecognitionEngine(embedder, detector=detector, device=device)
+
+
+def _iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def matched_cosines(results, others) -> list:
+    """Each face of ``results`` with a detector score of at least
+    ``DTYPE_FACE_SCORE`` paired with the face of ``others`` (same frame)
+    whose box overlaps it most (IoU above 0.5, or it fails): the cosines of
+    their embeddings."""
+    import numpy as np
+
+    out = []
+    for f, (res, oth) in enumerate(zip(results, others)):
+        for face in res["faces"]:
+            if face["det_score"] < DTYPE_FACE_SCORE:
+                continue
+            best = max(oth["faces"], key=lambda o: _iou(face["bbox"], o["bbox"]), default=None)
+            check(best is not None and _iou(face["bbox"], best["bbox"]) > 0.5,
+                  f"frame {f}: face at {face['bbox']} has no counterpart")
+            a, b = face["embedding"], best["embedding"]
+            out.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    return out
+
+
+def dtype_serving(card: str, model_type: str, engines: dict, frames, max_faces: int,
+                  match_kernel: str) -> dict:
+    """16 requests of rendered frames through ``MicroBatcher`` on the bf16
+    card engine, each face's own embedding planted in a 100k-row gallery:
+    every top-1 is its row. The same frames through the CPU port's bf16
+    plain path and the card's float32 engine: the embeddings' cosines
+    (faces paired by box), min and mean."""
+    import numpy as np
+
+    from facerecognition_tpu_torch.apps.serving import MicroBatcher
+    from facerecognition_tpu_torch.inference.engine import Gallery
+
+    rng = np.random.default_rng(SEED + 50 + max_faces)
+    bf16 = engines["bf16"]
+    for e in engines.values():
+        e.match_kernel = match_kernel
+        e.gallery = Gallery(512, device=e.device)
+        e.gallery.add_many(["seed"], rng.normal(size=(1, 512)).astype(np.float32))
+    first = bf16.fused_recognize_frames(frames, max_faces=max_faces)
+    faces = [(f, j) for f in range(len(frames)) for j in range(len(first[f]["faces"]))]
+    check(len(faces) >= len(frames), f"only {len(faces)} faces in {len(frames)} frames")
+    rows = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    names = [f"id{r:06d}" for r in range(GALLERY_ROWS)]
+    planted = {fj: int(r) for fj, r in zip(faces, rng.choice(GALLERY_ROWS, len(faces), replace=False))}
+    own = np.stack([first[f]["faces"][j]["embedding"] for f, j in faces])
+    for e in engines.values():
+        e.gallery = Gallery(512, device=e.device)
+        e.gallery.add_many(names, rows)
+        e.gallery.add_many([names[planted[fj]] for fj in faces], own)
+    batcher = MicroBatcher(bf16, frame_size=FRAME, max_faces=max_faces, max_delay_ms=5)
+    results, errors, lock = {}, [], threading.Lock()
+
+    def client(ids):
+        for f in ids:
+            try:
+                res = batcher.submit(frames[f], timeout=120)
+            except BaseException as e:  # reported by the main thread
+                with lock:
+                    errors.append(e)
+                return
+            with lock:
+                results[f] = res
+
+    counters = reset_counters()
+    threads = [threading.Thread(target=client, args=(range(c, len(frames), N_CLIENTS),))
+               for c in range(N_CLIENTS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        batcher.close()
+    launches = {name: c.count for name, c in counters.items()}
+    warp_kinds = counters["warp_sample"].by_kind()
+    if errors:
+        raise errors[0]
+    check(len(results) == len(frames), f"{len(results)} of {len(frames)} answers")
+    matcher = "int8_topk" if match_kernel == "int8" else "stream_topk"
+    for name in (matcher, "warp_sample") + (("detect_post",) if max_faces > 1 else ()):
+        check(launches[name] > 0, f"bf16 max_faces={max_faces}: the path launched no {name} kernel")
+    embedder_kind = "window/bfloat16" if max_faces > 1 else "align/bfloat16"
+    check(warp_kinds.get("resize/bfloat16", 0) > 0 and warp_kinds.get(embedder_kind, 0) > 0
+          and set(warp_kinds) == {"resize/bfloat16", embedder_kind},
+          f"bf16 max_faces={max_faces}: warp_sample launches by kind {warp_kinds}")
+    for f, j in faces:
+        top = results[f]["faces"][j]["top_k"]
+        want = names[planted[(f, j)]]
+        row_score = dict(top).get(want)
+        check(top[0][0] == want or (row_score is not None and top[0][1] - row_score <= 1e-6),
+              f"bf16 frame {f} face {j}: top-1 {top[0]}, planted {want}")
+    served = [results[f] for f in range(len(frames))]
+    line = {"card": card, "model_type": model_type, "max_faces": max_faces,
+            "match_kernel": match_kernel, "faces": len(faces), "planted_top1": len(faces),
+            "launches": launches, "warp_launches_by_kind": warp_kinds}
+    for other, least in (("cpu", DTYPE_MIN_COS_CPU), ("f32", DTYPE_MIN_COS_F32)):
+        cos = matched_cosines(served, engines[other].fused_recognize_frames(frames, max_faces=max_faces))
+        check(len(cos) > 0 and min(cos) > least,
+              f"bf16 vs {other}: embedding cosines min {min(cos, default=None)}")
+        line[f"cos_vs_{other}"] = {"min": min(cos), "mean": statistics.fmean(cos), "faces": len(cos)}
+    print("dtype serving", json.dumps(line), flush=True)
+    return line
+
+
+def dtype_staged(card: str, engines: dict, frames) -> dict:
+    """``detect_all`` and ``recognize`` of the bf16 engine on the card against
+    the CPU port's bf16 plain path: the same faces (boxes within
+    ``DTYPE_BOX_PX``, confidences within 1e-2), the same identities, confidences within
+    ``DTYPE_CONF_TOL``, embedding cosines above ``DTYPE_MIN_COS_CPU``."""
+    import numpy as np
+
+    card_e, cpu_e = engines["bf16"], engines["cpu"]
+    box_err = conf_err = 0.0
+    cos = []
+    for frame in frames:
+        got, ref = card_e.detector.detect_all(frame), cpu_e.detector.detect_all(frame)
+        check(len(got) == len(ref), f"detect_all: {len(got)} faces on the card, {len(ref)} on the CPU")
+        for g, r in zip(got, ref):
+            box_err = max(box_err, float(np.abs(np.subtract(g["bbox"], r["bbox"])).max()))
+            conf_err = max(conf_err, abs(g["confidence"] - r["confidence"]))
+        g, r = card_e.recognize(frame, k=5), cpu_e.recognize(frame, k=5)
+        check(g["identity"] == r["identity"], f"recognize: {g['identity']} vs CPU {r['identity']}")
+        check(abs(g["confidence"] - r["confidence"]) <= DTYPE_CONF_TOL,
+              f"recognize: confidence {g['confidence']} vs CPU {r['confidence']}")
+        cos.append(float(g["embedding"] @ r["embedding"]
+                         / (np.linalg.norm(g["embedding"]) * np.linalg.norm(r["embedding"]))))
+    check(box_err <= DTYPE_BOX_PX and conf_err <= 1e-2,
+          f"detect_all: box {box_err} px, confidence {conf_err}")
+    check(min(cos) > DTYPE_MIN_COS_CPU, f"recognize: card vs CPU cosine {min(cos)}")
+    line = {"card": card, "frames": len(frames), "detect_all_max_box_px": box_err,
+            "detect_all_max_conf_diff": conf_err, "recognize_cos_min": min(cos),
+            "recognize_cos_mean": statistics.fmean(cos)}
+    print("dtype staged", json.dumps(line), flush=True)
+    return line
+
+
+def input_casts(fn, shapes) -> int:
+    """``aten::_to_copy`` / ``aten::copy_`` calls on a tensor of one of
+    ``shapes`` in one call of ``fn`` (the profiler's shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.key in ("aten::_to_copy", "aten::copy_") and ev.input_shapes and \
+                list(ev.input_shapes[0]) in shapes:
+            n += ev.count
+    return n
+
+
+def conv_output_dtypes(engine, frames) -> list:
+    """The dtypes the detector's and the embedder's convolutions wrote in one
+    fused call of ``engine`` (forward hooks on every ``layers.Conv2d``)."""
+    from facerecognition_tpu_torch.models.layers import Conv2d
+
+    seen = set()
+    convs = [m for net in (engine.detector.net, engine.embedder.model) for m in net.modules()
+             if isinstance(m, Conv2d)]
+    hooks = [m.register_forward_hook(lambda _m, _x, y: seen.add(str(y.dtype))) for m in convs]
+    try:
+        engine.fused_recognize_frames(frames)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(seen)
+
+
+def dtype_phase(card: str, device) -> dict:
+    """The models' compute dtype on the card: the warp's bf16 / float16
+    model inputs, bf16 serving (ArcFace one face and M = 4 with ``stream``
+    and ``int8``, FaceNet one face) against the CPU and float32, the staged
+    API, and one fused call at B = 128, bf16 against float32 in turns."""
+    import numpy as np
+
+    from facerecognition_tpu_torch.tools.checkout_compare import alternate_ms
+
+    t0 = time.perf_counter()
+    out = {"warp": dtype_warp_checks(device)}
+    scenes = {m: rendered_frames(N_FRAMES, FRAME[0], m, SEED + 60 + m) for m in (1, CROWD_FACES)}
+    arcface = {"bf16": dtype_engine("arcface", "bfloat16", None),
+               "f32": dtype_engine("arcface", "float32", None),
+               "cpu": dtype_engine("arcface", "bfloat16", "cpu")}
+    out["serving"] = {f"arcface/{m}/{kind}": dtype_serving(card, "arcface", arcface, scenes[m], m, kind)
+                      for m in (1, CROWD_FACES) for kind in ("stream", "int8")}
+    out["staged"] = dtype_staged(card, arcface, scenes[CROWD_FACES][:4])
+    batch = np.tile(scenes[1], (PROFILE_BATCH // N_FRAMES, 1, 1, 1))
+    for e in arcface.values():
+        e.match_kernel = "stream"
+    bf16, f32 = arcface["bf16"], arcface["f32"]
+    casts = input_casts(lambda: bf16.fused_recognize_frames(batch),
+                        [[PROFILE_BATCH, s, s, 3] for s in (DET_SIZE, 112)]
+                        + [[PROFILE_BATCH, 3, s, s] for s in (DET_SIZE, 112)])
+    check(casts == 0, f"the bf16 fused call cast its model inputs {casts} times")
+    conv_dtypes = conv_output_dtypes(bf16, scenes[1])
+    check(conv_dtypes == ["torch.bfloat16"], f"the bf16 fused call's convolutions wrote {conv_dtypes}")
+    profiles = {"bf16": fused_profile(bf16, batch, 1), "f32": fused_profile(f32, batch, 1)}
+    walls = alternate_ms({kind: (lambda e=e: e.fused_recognize_frames(batch))
+                          for kind, e in (("bf16", bf16), ("f32", f32))})
+    out["fused"] = {kind: {**{key: profiles[kind][key] for key in (
+        "wall_ms", "device_ms", "host_gap_ms", "launches_per_call", "copies_per_call", "ours_us")},
+        "alternating_wall_ms": walls[kind]["ms"], "alternating_rounds_ms": walls[kind]["rounds_ms"]}
+        for kind in ("bf16", "f32")}
+    out["fused"]["input_casts_bf16"] = casts
+    out["fused"]["conv_output_dtypes_bf16"] = conv_dtypes
+    print("fused bf16 vs float32", json.dumps(out["fused"]), flush=True)
+    arcface = bf16 = f32 = None
+    facenet = {"bf16": dtype_engine("facenet", "bfloat16", None),
+               "f32": dtype_engine("facenet", "float32", None),
+               "cpu": dtype_engine("facenet", "bfloat16", "cpu")}
+    out["serving"]["facenet/1/stream"] = dtype_serving(card, "facenet", facenet, scenes[1], 1, "stream")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_child(entry: str, result_path: str, card: str) -> int:
     """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
     written to ``result_path`` as JSON (the body of ``in_child``'s
@@ -4213,6 +4575,9 @@ def main() -> int:
 
     with phase("parallel"):
         parallel = in_child("parallel_phase", smi)
+
+    with phase("dtype"):
+        dtype = in_child("dtype_phase", smi)
     evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
                       + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
     evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
@@ -4302,6 +4667,41 @@ def main() -> int:
             }
             for key, case in (("align", "align int8 B=128 256x256 -> 112x112"),
                               ("window", "align_crop_window int8 B=32 x M=4 256x256 -> 112x112"))
+        ),
+        *(
+            {
+                "name": "warp_sample",
+                "design": WARP_DESIGN + "; 16-bit output: each float32 value rounded once to the "
+                          "model's dtype as it is stored (the model's entry cast), 8-byte stores",
+                "case": f"{case} fast=True out_dtype={dt}",
+                "route": "cuda",
+                "source": "facerecognition_tpu_torch/csrc/warp_sample.cu",
+                "replaces": replaces,
+                "launches": (dtype["serving"][path]["warp_launches_by_kind"][kind] if dt == "bfloat16"
+                             else dtype["warp"][f"{key}/{dt}"]["launches"]),
+                "launches_in": (f"the dtype phase's bf16 serving run {path}, {kind} launches"
+                                if dt == "bfloat16" else
+                                "one call of the dtype phase's warp check (no path serves float16)"),
+                "max_abs_err": dtype["warp"][f"{key}/{dt}"]["max_abs_err"],
+                "ms": dtype["warp"][f"{key}/{dt}"]["ms"],
+                "device_us": dtype["warp"][f"{key}/{dt}"]["device_us"],
+                "float32_output_ms": dtype["warp"][f"{key}/float32"]["ms"],
+                "plain_ms": dtype["warp"][f"{key}/{dt}"]["plain_ms"],
+                "bound_ms": dtype["warp"][f"{key}/{dt}"]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            for key, case, replaces, path, kind in (
+                ("detector_input", "detector_input B=128 256x256 -> 128x128",
+                 "facerecognition_tpu/ops/warp_mxu.py:206", "arcface/1/stream", "resize/bfloat16"),
+                ("embedder_input", "embedder_input align B=128 256x256 -> 112x112",
+                 "facerecognition_tpu/ops/warp_mxu.py:249", "arcface/1/stream", "align/bfloat16"),
+                ("embedder_input_160", "embedder_input align B=128 256x256 -> 160x160",
+                 "facerecognition_tpu/ops/warp_mxu.py:249", "facenet/1/stream", "align/bfloat16"),
+                ("embedder_input_window", "embedder_input window B=32 x M=4 256x256 -> 112x112",
+                 "facerecognition_tpu/ops/warp_mxu.py:264", "arcface/4/stream", "window/bfloat16"),
+            )
+            for dt in ("bfloat16", "float16")
         ),
         {
             "name": "detect_post",
@@ -4421,6 +4821,11 @@ def main() -> int:
         "mobilefacenet": parallel["mobilefacenet"], "batch_helpers": parallel["batch_helpers"],
         "sharded": parallel["sharded"], "gloo": parallel["gloo"], "torchrun": parallel["torchrun"],
         "dp_step": parallel["dp_step"], "seconds": parallel["seconds"],
+    }), flush=True)
+    print("dtype", json.dumps({
+        "serving": {k: {key: v[key] for key in ("faces", "planted_top1", "cos_vs_cpu", "cos_vs_f32")}
+                    for k, v in dtype["serving"].items()},
+        "staged": dtype["staged"], "fused": dtype["fused"], "seconds": dtype["seconds"],
     }), flush=True)
     for entry in kernels:
         entry["evals_launches"] = evals_launches[entry["name"]]

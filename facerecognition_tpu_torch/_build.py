@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -218,20 +218,30 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class LaunchCounter:
-    """Counts a wrapper's kernel launches (thread-safe)."""
+    """Counts a wrapper's kernel launches (thread-safe), in all and, where
+    the wrapper names one, by the launch's kind (``by_kind``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._kinds: dict = {}
 
-    def add(self) -> None:
+    def add(self, kind: Optional[str] = None) -> None:
         with self._lock:
             self._n += 1
+            if kind is not None:
+                self._kinds[kind] = self._kinds.get(kind, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._kinds = {}
 
     @property
     def count(self) -> int:
         return self._n
+
+    def by_kind(self) -> dict:
+        """{kind: launches} since the last reset."""
+        with self._lock:
+            return dict(self._kinds)

@@ -69,9 +69,15 @@
 //     conversion instruction;
 //   - each thread computes four neighbouring output pixels of one row and
 //     writes each channel plane with one 16-byte store: the output is planar
-//     NCHW, what the convolutions read, normalised already.
+//     NCHW, what the convolutions read, normalised already;
+//   - the output is in the model's compute dtype (`out_dtype`: float32,
+//     bf16 or fp16): each float32 value is rounded once to it, to nearest
+//     even (__float2bfloat16_rn / __float2half_rn), as it is stored, which is
+//     JAX's x.astype(dtype) at the model's entry, so no cast follows the
+//     warp and the output's bytes halve (one 8-byte store per plane).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -80,13 +86,15 @@
 
 // The `fast` modes: float32, bf16 operands, int8 operands.
 enum { F32 = 0, BF16 = 1, INT8 = 2 };
+// The output dtypes (`out_dtype`).
+enum { OUT_F32 = 0, OUT_BF16 = 1, OUT_F16 = 2 };
 
 // Mirrored field for field by ops/warp_sample._Args (ctypes). Outside the
 // anonymous namespace: warp_sample_launch, which takes it, keeps C linkage.
 struct WarpArgs {
   const void* frames;      // (F, H, W, 3) uint8 or float32
   const float* landmarks;  // (S, 5, 2); null: resize, slot s reads frame s
-  float* out;              // (S, 3, out_h, out_w) float32
+  void* out;               // (S, 3, out_h, out_w) in out_dtype
   float* slot_params;      // optional (S, 8): m00 m01 m02 aa bb cc x0 y0
   const float* matrices;   // (S, 2, 3) forward maps in place of landmarks; else null
   int frames_u8, n_frames, H, W;
@@ -94,6 +102,7 @@ struct WarpArgs {
   int out_h, out_w;
   int window;              // crop side (already min(window, H, W)); 0: whole frame
   int fast, normalize;     // fast: F32, BF16 or INT8
+  int out_dtype;           // OUT_F32, OUT_BF16 or OUT_F16
   float lm_scale_x, lm_scale_y, lm_min, lm_max_x, lm_max_y;
   float tmpl[10];          // the template scaled to out_size, (x, y) per point
   float norm_mul, norm_sub, norm_scale;  // ((v * mul) - sub) * scale
@@ -646,17 +655,42 @@ __device__ __forceinline__ void sample_tile(const Args& a, const Tiling& tl, con
             __fmul_rn(__fsub_rn(__fmul_rn(res[c][p], a.norm_mul), a.norm_sub), a.norm_scale);
   }
   const size_t plane = (size_t)a.out_h * a.out_w;
-  float* o = a.out + (size_t)s * CH * plane + (size_t)i * a.out_w + j0;
-  if (tl.vec) {
+  const size_t at = (size_t)s * CH * plane + (size_t)i * a.out_w + j0;
+  if (a.out_dtype == OUT_F32) {
+    float* o = static_cast<float*>(a.out) + at;
+    if (tl.vec) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        *reinterpret_cast<float4*>(o + c * plane) = make_float4(res[c][0], res[c][1], res[c][2], res[c][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (j0 + p <= jb) o[c * plane + p] = res[c][p];
+    }
+    return;
+  }
+  // 16-bit output: each value rounded once, to nearest even.
+  unsigned short h[CH][4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      h[c][p] = a.out_dtype == OUT_BF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(res[c][p]))
+                                        : __half_as_ushort(__float2half_rn(res[c][p]));
+  unsigned short* o = static_cast<unsigned short*>(a.out) + at;
+  if (tl.vec) {  // at is a multiple of 4 elements: 8-byte aligned
 #pragma unroll
     for (int c = 0; c < CH; ++c)
-      *reinterpret_cast<float4*>(o + c * plane) = make_float4(res[c][0], res[c][1], res[c][2], res[c][3]);
+      *reinterpret_cast<uint2*>(o + c * plane) =
+          make_uint2(h[c][0] | ((unsigned)h[c][1] << 16), h[c][2] | ((unsigned)h[c][3] << 16));
   } else {
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int p = 0; p < 4; ++p)
-        if (j0 + p <= jb) o[c * plane + p] = res[c][p];
+        if (j0 + p <= jb) o[c * plane + p] = h[c][p];
   }
 }
 
@@ -713,7 +747,7 @@ void launch(const Args& a, const Tiling& tl, int tiles, cudaStream_t st) {
 
 extern "C" {
 
-// See Args. Slot s writes out[s] (3, out_h, out_w) float32: resized from
+// See Args. Slot s writes out[s] (3, out_h, out_w) in out_dtype: resized from
 // frame s (landmarks and matrices null), warped from frame s by its forward
 // map matrices[s], or warped from frame s / per_frame by the map its
 // landmarks give, from the whole frame or (window > 0) from its window^2
@@ -731,7 +765,7 @@ int warp_sample_launch(const WarpArgs* args, int device, void* stream) {
       (long long)a.n_frames * a.per_frame != a.slots || a.window < 0 || a.window > a.H ||
       a.window > a.W || (resize && (a.per_frame != 1 || a.window != 0)) ||
       (!resize && a.window > 0 && a.out_h != a.out_w) || a.fast < F32 || a.fast > INT8 ||
-      (resize && a.fast == INT8))
+      (resize && a.fast == INT8) || a.out_dtype < OUT_F32 || a.out_dtype > OUT_F16)
     return -1;
   Tiling tl;
   const int groups = (a.out_w + 3) / 4;

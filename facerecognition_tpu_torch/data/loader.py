@@ -5,7 +5,9 @@ reads each batch with the native decoder (``data/native_decode.
 decode_batch``: decode, half-pixel bilinear resize, rounded to uint8) in a
 producer thread, ``n_prefetch`` batches ahead. A row the decoder rejects is
 zero-filled with a warning: the JAX loader retries such a row with PIL
-(other formats than PNG and JPEG), the port reads PNG and JPEG only.
+(other formats than PNG and JPEG), the port reads PNG and JPEG only. With
+``use_native=False`` each file is read alone, in a pool of ``n_workers``
+threads, by ``_load_resize`` (the JAX loader's per-file PIL path).
 
 ``_load_resize`` is what the trainers' validation reads: the image resized
 to ``size``² with PIL's ``Image.BILINEAR`` for 8-bit images, in numpy and
@@ -98,7 +100,9 @@ class BatchLoader:
     """Iterates (images (B, S, S, 3) uint8, labels (B,)) with prefetch.
 
     ``sampler`` yields index arrays; ``n_prefetch`` batches are decoded
-    ahead, each with ``n_workers`` decoder threads."""
+    ahead, each with ``n_workers`` decoder threads: the native decoder's
+    batch call, or with ``use_native=False`` one ``_load_resize`` per file
+    (the single-file decoder and PIL's bilinear resize)."""
 
     def __init__(
         self,
@@ -107,11 +111,14 @@ class BatchLoader:
         image_size: int = 112,
         n_workers: int = 8,
         n_prefetch: int = 4,
+        use_native: bool = True,
     ):
         self.index = index
         self.sampler = sampler
         self.image_size = image_size
         self.n_workers = n_workers
+        self.use_native = use_native
+        self._pool = None  # the per-file path's threads, made at first use
         self.queue: queue.Queue = queue.Queue(maxsize=n_prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
@@ -127,8 +134,21 @@ class BatchLoader:
                 f"image decode failed, zero-filled: {path} (the native decoder reads PNG and JPEG)"
             )
 
+    def _load_one(self, path: str) -> np.ndarray:
+        try:
+            return _load_resize(path, self.image_size)
+        except OSError:
+            self._warn_failed(path)
+            return np.zeros((self.image_size, self.image_size, 3), np.uint8)
+
     def _load_batch(self, idx: np.ndarray):
         paths = [self.index.paths[i] for i in idx]
+        if not self.use_native:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(self.n_workers)
+            return np.stack(list(self._pool.map(self._load_one, paths))), self.index.labels[idx]
         imgs, ok = native_decode.decode_batch(paths, self.image_size, self.n_workers)
         for j in np.flatnonzero(~ok):
             self._warn_failed(paths[j])
@@ -173,6 +193,8 @@ class BatchLoader:
 
     def stop(self):
         self._stop.set()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
         # Drain so the producer can exit a blocked put.
         try:
             while True:

@@ -344,14 +344,16 @@ class RecognitionEngine:
         (B, M, k), detector scores (B, M), boxes (B, M, 4) in the detector's
         input pixels, validity (B, M) and embeddings (B, M, D). The landmark
         scale into the frame, the alignment and both models' input
-        normalisation run inside the ``warp_sample`` launches."""
+        normalisation run inside the ``warp_sample`` launches, which write
+        each model's input in that model's compute dtype; the detector's raw
+        output and the embeddings are float32."""
         det = self.detector
         size = self.embedder.config.input_size
         det_size = det.input_size
         bsz, h, w = frames.shape[:3]
         dev = frames.device
         with strict_fp32():
-            raw = det.net(detector_input(frames, det_size))
+            raw = det.net(detector_input(frames, det_size, out_dtype=det.net.dtype))
             if max_faces == 1:
                 # Greedy NMS's first pick is the score argmax.
                 b1, l1, s1 = detect_best_face(raw, det.anchors)
@@ -362,7 +364,8 @@ class RecognitionEngine:
                     raw, det.anchors, det.iou_threshold, max_faces
                 )
             window = CROWD_WINDOW if max_faces > 1 and min(h, w) > CROWD_WINDOW else None
-            x = embedder_input(frames, lms, det_size, size, window)
+            x = embedder_input(frames, lms, det_size, size, window,
+                               out_dtype=self.embedder.config.dtype)
             emb = self.embedder.model(x).float()
         emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
         if self.match_kernel == "int8":

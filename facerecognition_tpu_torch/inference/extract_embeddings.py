@@ -34,6 +34,7 @@ from facerecognition_tpu_torch.convert import (
 from facerecognition_tpu_torch.device import DeviceLike, resolve_device, strict_fp32
 from facerecognition_tpu_torch.models.arcface import ArcFaceModel
 from facerecognition_tpu_torch.models.facenet import FaceNetModel
+from facerecognition_tpu_torch.models.layers import as_compute_dtype
 from facerecognition_tpu_torch.ops.image import bilinear_resize, normalize_imagenet_style
 from facerecognition_tpu_torch.ops.matcher import auto_cosine_topk, compute_prototypes, l2_normalize
 from facerecognition_tpu_torch.preprocessing.face_detector import ASSETS_DIR
@@ -72,18 +73,27 @@ DEFAULT_FACENET_CHECKPOINTS = (
 
 @dataclasses.dataclass
 class EmbedderConfig:
-    """Which embedding model and input geometry to use."""
+    """Which embedding model and input geometry to use. ``dtype``: the
+    model's compute dtype (float32, bfloat16 or float16, or its name; a
+    keyword: the fourth field is ``stage_sizes``, as the port's callers have
+    it, where JAX's fourth is ``dtype``)."""
 
     model_type: str = "arcface"  # arcface | facenet
     embedding_size: int = 512
     input_size: int = 112  # 112 for arcface, 160 for facenet
     stage_sizes: tuple = (3, 4, 6, 3)  # ArcFace only
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        self.dtype = as_compute_dtype(self.dtype)
 
 
 class Embedder:
     """uint8-range images → L2-normalized embeddings on one device. The
     output is normalised again after the model, as the JAX embedder does
-    (FaceNet's own output is already unit rows)."""
+    (FaceNet's own output is already unit rows). The resize and the
+    normalisation run in float32; the model rounds its input to its compute
+    dtype, which must be the config's."""
 
     def __init__(
         self,
@@ -97,6 +107,8 @@ class Embedder:
         kind = kinds[config.model_type]
         if not isinstance(model, kind):
             raise TypeError(f"a {config.model_type} embedder needs a {kind.__name__}")
+        if model.dtype != config.dtype:
+            raise ValueError(f"the model computes in {model.dtype}, the config says {config.dtype}")
         self.config = config
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -144,8 +156,11 @@ def resnet_stage_sizes(state: dict) -> tuple:
     return tuple(sum(1 for s, _ in blocks if s == stage) for stage in (1, 2, 3, 4))
 
 
-def load_arcface_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> ArcFaceModel:
-    """An ArcFace model (on the CPU) with a checkpoint's weights: a flax
+def load_arcface_checkpoint(
+    checkpoint_path: str, embedding_size: int = 512, dtype=torch.float32
+) -> ArcFaceModel:
+    """An ArcFace model (on the CPU, computing in ``dtype``; the weights stay
+    float32) with a checkpoint's weights: a flax
     msgpack file, whose backbone depth rides in it as ``stage_sizes``
     (absent: ResNet50's (3, 4, 6, 3)), or a reference torch ``.pth``/``.pt``
     (``backbone.<torchvision resnet50>``, ``bn1``, ``fc``, ``bn2``; the
@@ -155,13 +170,13 @@ def load_arcface_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> 
     JAX loader fails on the missing blocks."""
     if checkpoint_path.endswith((".pth", ".pt")):
         state = arcface_state_dict(load_torch_checkpoint(checkpoint_path))
-        model = ArcFaceModel(embedding_size, resnet_stage_sizes(state))
+        model = ArcFaceModel(embedding_size, resnet_stage_sizes(state), dtype=dtype)
         model.load_state_dict(state, strict=True)
         return model
     variables = load_variables(checkpoint_path)
     raw = variables.pop("stage_sizes", None)
     stages = (3, 4, 6, 3) if raw is None else tuple(int(v) for v in np.asarray(raw))
-    model = ArcFaceModel(embedding_size, stages)
+    model = ArcFaceModel(embedding_size, stages, dtype=dtype)
     load_flax_variables(
         model, {k: variables[k] for k in ("params", "batch_stats") if k in variables}
     )
@@ -171,16 +186,19 @@ def load_arcface_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> 
 def load_arcface_model(
     checkpoint_path: Optional[str] = None,
     embedding_size: int = 512,
+    dtype=torch.float32,
     stage_sizes: Optional[Sequence[int]] = None,
     device: DeviceLike = None,
     seed: int = 0,
 ) -> Embedder:
     """ArcFace ``Embedder`` from a checkpoint, or randomly initialised from
-    ``seed`` when ``checkpoint_path`` is None (for tests). An explicit
-    ``stage_sizes`` must match the checkpoint's."""
+    ``seed`` when ``checkpoint_path`` is None (for tests), its model
+    computing in ``dtype``. An explicit ``stage_sizes`` must match the
+    checkpoint's."""
     device = resolve_device(device)
+    dtype = as_compute_dtype(dtype)
     if checkpoint_path:
-        model = load_arcface_checkpoint(checkpoint_path, embedding_size)
+        model = load_arcface_checkpoint(checkpoint_path, embedding_size, dtype)
         if stage_sizes is not None and tuple(stage_sizes) != model.stage_sizes:
             raise ValueError(
                 f"stage_sizes {tuple(stage_sizes)} != checkpoint's {model.stage_sizes}"
@@ -188,16 +206,19 @@ def load_arcface_model(
     else:
         with torch.random.fork_rng(devices=[]):  # leave the global RNG as it was
             torch.manual_seed(seed)
-            model = ArcFaceModel(embedding_size, tuple(stage_sizes or (3, 4, 6, 3)))
-    config = EmbedderConfig("arcface", embedding_size, 112, model.stage_sizes)
+            model = ArcFaceModel(embedding_size, tuple(stage_sizes or (3, 4, 6, 3)), dtype=dtype)
+    config = EmbedderConfig("arcface", embedding_size, 112, model.stage_sizes, dtype)
     return Embedder(config, model, device)
 
 
-def load_facenet_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> FaceNetModel:
-    """A FaceNet model (on the CPU) with a checkpoint's weights: a flax
-    msgpack file, or a reference torch ``.pth``/``.pt`` (facenet-pytorch
-    keys under ``model.``/``backbone.``/``module.``, ``logits`` dropped)."""
-    model = FaceNetModel(embedding_size)
+def load_facenet_checkpoint(
+    checkpoint_path: str, embedding_size: int = 512, dtype=torch.float32
+) -> FaceNetModel:
+    """A FaceNet model (on the CPU, computing in ``dtype``) with a
+    checkpoint's weights: a flax msgpack file, or a reference torch
+    ``.pth``/``.pt`` (facenet-pytorch keys under ``model.``/``backbone.``/
+    ``module.``, ``logits`` dropped)."""
+    model = FaceNetModel(embedding_size, dtype=dtype)
     if checkpoint_path.endswith((".pth", ".pt")):
         state = facenet_state_dict(load_torch_checkpoint(checkpoint_path))
     else:
@@ -212,20 +233,23 @@ def load_facenet_checkpoint(checkpoint_path: str, embedding_size: int = 512) -> 
 def load_facenet_model(
     checkpoint_path: Optional[str] = None,
     embedding_size: int = 512,
+    dtype=torch.float32,
     device: DeviceLike = None,
     seed: int = 0,
 ) -> Embedder:
     """FaceNet ``Embedder`` (160² inputs) from a checkpoint, or randomly
     initialised from ``seed`` when ``checkpoint_path`` is None (for tests;
-    PyTorch's initialisation, not flax's numbers)."""
+    PyTorch's initialisation, not flax's numbers), its model computing in
+    ``dtype``."""
     device = resolve_device(device)
+    dtype = as_compute_dtype(dtype)
     if checkpoint_path:
-        model = load_facenet_checkpoint(checkpoint_path, embedding_size)
+        model = load_facenet_checkpoint(checkpoint_path, embedding_size, dtype)
     else:
         with torch.random.fork_rng(devices=[]):  # leave the global RNG as it was
             torch.manual_seed(seed)
-            model = FaceNetModel(embedding_size)
-    return Embedder(EmbedderConfig("facenet", embedding_size, 160), model, device)
+            model = FaceNetModel(embedding_size, dtype=dtype)
+    return Embedder(EmbedderConfig("facenet", embedding_size, 160, dtype=dtype), model, device)
 
 
 def extract_embedding_single(

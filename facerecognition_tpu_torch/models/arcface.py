@@ -7,7 +7,9 @@ additive-angular-margin head ``arcface`` (``ArcMarginProduct``, a (C, D)
 ``weight``), which exists when ``num_classes`` > 0. In training mode
 (``module.train()``) dropout is flax's, drawn from the generator the forward
 is given, and the batch norms update their running statistics as flax's do
-(``models/layers.py``).
+(``models/layers.py``). ``dtype`` is the backbone's compute dtype (the
+flax field); ``bn1``, ``fc``, ``bn2`` and the margin head stay float32, as
+in the JAX model.
 """
 
 from __future__ import annotations
@@ -103,11 +105,13 @@ class ArcFaceModel(nn.Module):
         margin: float = 0.5,
         easy_margin: bool = False,
         dropout: float = 0.5,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.dropout = dropout
-        self.backbone = ResNet50Backbone(stage_sizes)
+        self.backbone = ResNet50Backbone(stage_sizes, dtype)
+        self.dtype = self.backbone.dtype
         self.bn1 = BatchNorm1d(2048, eps=BN_EPS)
         self.fc = nn.Linear(2048, embedding_size)
         self.bn2 = BatchNorm1d(embedding_size, eps=BN_EPS)

@@ -9,6 +9,9 @@ card version is the ``ops.detect_post`` kernel). Input and output keep
 the JAX layout: (B, S, S, 3) normalized NHWC → (B, A, 15) raw predictions,
 A = (S/8)²·2 + (S/16)²·6 anchors ordered (y, x, anchor). Each anchor
 predicts [logit, dcx, dcy, w, h, 5 × (lx, ly)] relative to its centre.
+``dtype`` is the backbones' compute dtype (the flax field): the input is
+rounded to it, every convolution, ReLU and residual sum runs in it, and the
+raw output is float32, as the JAX nets' closing ``astype``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from facerecognition_tpu_torch.models.layers import Conv2d, as_compute_dtype
 from facerecognition_tpu_torch.ops.matcher import topk_lowest_index
 from facerecognition_tpu_torch.ops.nms import nms_padded
 
@@ -35,11 +39,11 @@ def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
-class _SameConv(nn.Conv2d):
+class _SameConv(Conv2d):
     """Conv2d with flax's SAME padding (no implicit padding of its own)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
-        super().__init__(cin, cout, kernel, stride=stride, padding=0)
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, dtype=torch.float32):
+        super().__init__(cin, cout, kernel, stride=stride, padding=0, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(_same_pad(x, self.kernel_size[0], self.stride[0]))
@@ -48,22 +52,23 @@ class _SameConv(nn.Conv2d):
 class DenseDetNet(nn.Module):
     """Plain 3x3/5x5 convolution detector backbone with two heads."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.stem = nn.Conv2d(3, 32, 5, stride=2, padding=2)  # S/2
-        self.c1 = _SameConv(32, 48, 3)
-        self.d1 = _SameConv(48, 64, 3, 2)  # S/4
-        self.c2 = _SameConv(64, 64, 3)
-        self.d2 = _SameConv(64, 96, 3, 2)  # S/8
-        self.c3 = _SameConv(96, 96, 3)
-        self.c4 = _SameConv(96, 96, 3)
-        self.d3 = _SameConv(96, 128, 3, 2)  # S/16
-        self.c5 = _SameConv(128, 128, 3)
-        self.head1 = nn.Conv2d(96, 2 * 15, 1)
-        self.head2 = nn.Conv2d(128, 6 * 15, 1)
+        self.dtype = dt = as_compute_dtype(dtype)
+        self.stem = Conv2d(3, 32, 5, stride=2, padding=2, compute_dtype=dt)  # S/2
+        self.c1 = _SameConv(32, 48, 3, dtype=dt)
+        self.d1 = _SameConv(48, 64, 3, 2, dt)  # S/4
+        self.c2 = _SameConv(64, 64, 3, dtype=dt)
+        self.d2 = _SameConv(64, 96, 3, 2, dt)  # S/8
+        self.c3 = _SameConv(96, 96, 3, dtype=dt)
+        self.c4 = _SameConv(96, 96, 3, dtype=dt)
+        self.d3 = _SameConv(96, 128, 3, 2, dt)  # S/16
+        self.c5 = _SameConv(128, 128, 3, dtype=dt)
+        self.head1 = Conv2d(96, 2 * 15, 1, compute_dtype=dt)
+        self.head2 = Conv2d(128, 6 * 15, 1, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.stem(x))
         x = F.relu(self.c1(x))
         x = F.relu(self.d1(x))
@@ -77,7 +82,7 @@ class DenseDetNet(nn.Module):
         # NHWC before the reshape keeps the flax anchor order (y, x, anchor).
         out1 = self.head1(f1).permute(0, 2, 3, 1).reshape(b, -1, 15)
         out2 = self.head2(f2).permute(0, 2, 3, 1).reshape(b, -1, 15)
-        return torch.cat([out1, out2], dim=1)
+        return torch.cat([out1, out2], dim=1).float()
 
 
 class BlazeBlock(nn.Module):
@@ -85,12 +90,12 @@ class BlazeBlock(nn.Module):
     plus a shortcut: a 2x2 max-pool at stride 2 when the block strides, then
     zero channels up to ``features``; ReLU of the sum."""
 
-    def __init__(self, cin: int, features: int, strides: int = 1):
+    def __init__(self, cin: int, features: int, strides: int = 1, dtype=torch.float32):
         super().__init__()
         self.strides = strides
         self.extra = features - cin
-        self.dw = nn.Conv2d(cin, cin, 5, stride=strides, padding=2, groups=cin)
-        self.pw = nn.Conv2d(cin, features, 1)
+        self.dw = Conv2d(cin, cin, 5, stride=strides, padding=2, groups=cin, compute_dtype=dtype)
+        self.pw = Conv2d(cin, features, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.pw(self.dw(x))
@@ -112,18 +117,19 @@ class BlazeFaceNet(nn.Module):
         ("b9", 88, 2), ("b10", 96, 1), ("b11", 96, 1),  # S/16: large faces
     )
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.stem = nn.Conv2d(3, 24, 5, stride=2, padding=2)  # S/2
+        self.dtype = dt = as_compute_dtype(dtype)
+        self.stem = Conv2d(3, 24, 5, stride=2, padding=2, compute_dtype=dt)  # S/2
         cin = 24
         for name, features, stride in self.BLOCKS:
-            setattr(self, name, BlazeBlock(cin, features, stride))
+            setattr(self, name, BlazeBlock(cin, features, stride, dt))
             cin = features
-        self.head1 = nn.Conv2d(64, 2 * 15, 1)
-        self.head2 = nn.Conv2d(96, 6 * 15, 1)
+        self.head1 = Conv2d(64, 2 * 15, 1, compute_dtype=dt)
+        self.head2 = Conv2d(96, 6 * 15, 1, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.stem(x))
         for name, _, _ in self.BLOCKS:
             x = getattr(self, name)(x)
@@ -133,16 +139,17 @@ class BlazeFaceNet(nn.Module):
         # NHWC before the reshape keeps the flax anchor order (y, x, anchor).
         out1 = self.head1(f1).permute(0, 2, 3, 1).reshape(b, -1, 15)
         out2 = self.head2(x).permute(0, 2, 3, 1).reshape(b, -1, 15)
-        return torch.cat([out1, out2], dim=1)
+        return torch.cat([out1, out2], dim=1).float()
 
 
 DETECTOR_ARCHS = {"blaze": BlazeFaceNet, "dense": DenseDetNet}
 
 
-def build_detector_net(arch: str = "blaze") -> nn.Module:
-    """Detector backbone by the checkpoint's ``arch`` name."""
+def build_detector_net(arch: str = "blaze", dtype=torch.float32) -> nn.Module:
+    """Detector backbone by the checkpoint's ``arch`` name, computing in
+    ``dtype``."""
     try:
-        return DETECTOR_ARCHS[arch]()
+        return DETECTOR_ARCHS[arch](dtype=dtype)
     except KeyError:
         raise ValueError(
             f"unknown detector arch {arch!r}; have {sorted(DETECTOR_ARCHS)}"

@@ -24,12 +24,14 @@ from facerecognition_tpu_torch.ops.matcher import pairwise_sq_dists
 class FaceNetModel(nn.Module):
     """(B, S, S, 3) normalized NHWC → (B, embedding_size) unit rows; a Linear
     ``projection`` maps the backbone's 512 to ``embedding_size`` when they
-    differ."""
+    differ. ``dtype`` is the backbone's compute dtype (the flax field); the
+    projection and the normalisation are float32."""
 
-    def __init__(self, embedding_size: int = 512, dropout: float = 0.6):
+    def __init__(self, embedding_size: int = 512, dropout: float = 0.6, dtype=torch.float32):
         super().__init__()
         self.embedding_size = embedding_size
-        self.backbone = InceptionResnetV1(dropout)
+        self.backbone = InceptionResnetV1(dropout, dtype)
+        self.dtype = self.backbone.dtype
         self.projection = nn.Linear(512, embedding_size) if embedding_size != 512 else None
 
     def forward(

@@ -10,7 +10,11 @@ order. Convolutions are VALID unless padded explicitly, the pools are VALID
 not ResNet's 1e-5). Dropout is the identity at inference; in training mode
 ``dropout`` (0.6) is flax's, drawn from the generator the forward is given,
 and the batch norms update their running statistics as flax's do
-(``models/layers.py``).
+(``models/layers.py``). ``dtype`` is the convolutions' compute dtype (the
+flax field): each ``BasicConv2d``'s batch norm returns float32, a residual
+block's ``scale * conv2d(up)`` joins the float32 sum as XLA's jitted graph
+computes it (``_residual``), and ``last_linear`` and ``last_bn`` are
+float32.
 """
 
 from __future__ import annotations
@@ -21,7 +25,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from facerecognition_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, dropout
+from facerecognition_tpu_torch.models.layers import (
+    BatchNorm1d,
+    BatchNorm2d,
+    Conv2d,
+    as_compute_dtype,
+    dropout,
+)
 
 BN_EPS = 1e-3
 #: Below this side the VALID reduction chain reaches a zero-size map at
@@ -34,9 +44,11 @@ Size = Union[int, Sequence[int]]
 class BasicConv2d(nn.Module):
     """Conv (no bias) → BN → ReLU."""
 
-    def __init__(self, cin: int, cout: int, kernel: Size, stride: int = 1, padding: Size = 0):
+    def __init__(self, cin: int, cout: int, kernel: Size, stride: int = 1, padding: Size = 0,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False,
+                           compute_dtype=dtype)
         self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,76 +59,88 @@ def _maxpool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, stride=2)
 
 
+def _residual(x: torch.Tensor, scale: float, up: torch.Tensor) -> torch.Tensor:
+    """``x + scale * up`` for a float32 ``x`` and the block's ``conv2d``
+    output ``up``, as XLA's jitted graph computes it: in bfloat16 the weakly
+    typed ``scale`` is rounded to bfloat16 and the product stays float32 (its
+    rounding to bfloat16 is dropped before the float32 sum); in float16 and
+    float32 the product is rounded to ``up``'s dtype, then widened."""
+    if up.dtype == torch.bfloat16:
+        return x + float(torch.tensor(scale, dtype=torch.bfloat16)) * up.float()
+    return x + scale * up
+
+
 class Block35(nn.Module):
     """Inception-A residual block, 256 channels."""
 
-    def __init__(self, scale: float = 1.0):
+    def __init__(self, scale: float = 1.0, dtype=torch.float32):
         super().__init__()
         self.scale = scale
-        self.branch0 = BasicConv2d(256, 32, 1)
-        self.branch1 = nn.Sequential(BasicConv2d(256, 32, 1), BasicConv2d(32, 32, 3, padding=1))
+        self.branch0 = BasicConv2d(256, 32, 1, dtype=dtype)
+        self.branch1 = nn.Sequential(BasicConv2d(256, 32, 1, dtype=dtype),
+                                     BasicConv2d(32, 32, 3, padding=1, dtype=dtype))
         self.branch2 = nn.Sequential(
-            BasicConv2d(256, 32, 1),
-            BasicConv2d(32, 32, 3, padding=1),
-            BasicConv2d(32, 32, 3, padding=1),
+            BasicConv2d(256, 32, 1, dtype=dtype),
+            BasicConv2d(32, 32, 3, padding=1, dtype=dtype),
+            BasicConv2d(32, 32, 3, padding=1, dtype=dtype),
         )
-        self.conv2d = nn.Conv2d(96, 256, 1)
+        self.conv2d = Conv2d(96, 256, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = torch.cat([self.branch0(x), self.branch1(x), self.branch2(x)], 1)
-        return F.relu(x + self.scale * self.conv2d(up))
+        return F.relu(_residual(x, self.scale, self.conv2d(up)))
 
 
 class Block17(nn.Module):
     """Inception-B residual block, 896 channels."""
 
-    def __init__(self, scale: float = 1.0):
+    def __init__(self, scale: float = 1.0, dtype=torch.float32):
         super().__init__()
         self.scale = scale
-        self.branch0 = BasicConv2d(896, 128, 1)
+        self.branch0 = BasicConv2d(896, 128, 1, dtype=dtype)
         self.branch1 = nn.Sequential(
-            BasicConv2d(896, 128, 1),
-            BasicConv2d(128, 128, (1, 7), padding=(0, 3)),
-            BasicConv2d(128, 128, (7, 1), padding=(3, 0)),
+            BasicConv2d(896, 128, 1, dtype=dtype),
+            BasicConv2d(128, 128, (1, 7), padding=(0, 3), dtype=dtype),
+            BasicConv2d(128, 128, (7, 1), padding=(3, 0), dtype=dtype),
         )
-        self.conv2d = nn.Conv2d(256, 896, 1)
+        self.conv2d = Conv2d(256, 896, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = torch.cat([self.branch0(x), self.branch1(x)], 1)
-        return F.relu(x + self.scale * self.conv2d(up))
+        return F.relu(_residual(x, self.scale, self.conv2d(up)))
 
 
 class Block8(nn.Module):
     """Inception-C residual block, 1792 channels; the last has no ReLU."""
 
-    def __init__(self, scale: float = 1.0, no_relu: bool = False):
+    def __init__(self, scale: float = 1.0, no_relu: bool = False, dtype=torch.float32):
         super().__init__()
         self.scale = scale
         self.no_relu = no_relu
-        self.branch0 = BasicConv2d(1792, 192, 1)
+        self.branch0 = BasicConv2d(1792, 192, 1, dtype=dtype)
         self.branch1 = nn.Sequential(
-            BasicConv2d(1792, 192, 1),
-            BasicConv2d(192, 192, (1, 3), padding=(0, 1)),
-            BasicConv2d(192, 192, (3, 1), padding=(1, 0)),
+            BasicConv2d(1792, 192, 1, dtype=dtype),
+            BasicConv2d(192, 192, (1, 3), padding=(0, 1), dtype=dtype),
+            BasicConv2d(192, 192, (3, 1), padding=(1, 0), dtype=dtype),
         )
-        self.conv2d = nn.Conv2d(384, 1792, 1)
+        self.conv2d = Conv2d(384, 1792, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = torch.cat([self.branch0(x), self.branch1(x)], 1)
-        out = x + self.scale * self.conv2d(up)
+        out = _residual(x, self.scale, self.conv2d(up))
         return out if self.no_relu else F.relu(out)
 
 
 class Mixed6a(nn.Module):
     """Reduction-A: 256 → 896 channels, spatial /2."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.branch0 = BasicConv2d(256, 384, 3, stride=2)
+        self.branch0 = BasicConv2d(256, 384, 3, stride=2, dtype=dtype)
         self.branch1 = nn.Sequential(
-            BasicConv2d(256, 192, 1),
-            BasicConv2d(192, 192, 3, padding=1),
-            BasicConv2d(192, 256, 3, stride=2),
+            BasicConv2d(256, 192, 1, dtype=dtype),
+            BasicConv2d(192, 192, 3, padding=1, dtype=dtype),
+            BasicConv2d(192, 256, 3, stride=2, dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,14 +150,16 @@ class Mixed6a(nn.Module):
 class Mixed7a(nn.Module):
     """Reduction-B: 896 → 1792 channels, spatial /2."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.branch0 = nn.Sequential(BasicConv2d(896, 256, 1), BasicConv2d(256, 384, 3, stride=2))
-        self.branch1 = nn.Sequential(BasicConv2d(896, 256, 1), BasicConv2d(256, 256, 3, stride=2))
+        self.branch0 = nn.Sequential(BasicConv2d(896, 256, 1, dtype=dtype),
+                                     BasicConv2d(256, 384, 3, stride=2, dtype=dtype))
+        self.branch1 = nn.Sequential(BasicConv2d(896, 256, 1, dtype=dtype),
+                                     BasicConv2d(256, 256, 3, stride=2, dtype=dtype))
         self.branch2 = nn.Sequential(
-            BasicConv2d(896, 256, 1),
-            BasicConv2d(256, 256, 3, padding=1),
-            BasicConv2d(256, 256, 3, stride=2),
+            BasicConv2d(896, 256, 1, dtype=dtype),
+            BasicConv2d(256, 256, 3, padding=1, dtype=dtype),
+            BasicConv2d(256, 256, 3, stride=2, dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,21 +171,22 @@ class InceptionResnetV1(nn.Module):
     output (callers L2-normalise); with ``return_feature_map`` also the
     ``block8`` map (B, 1792, h, w) NCHW, which Grad-CAM taps."""
 
-    def __init__(self, dropout: float = 0.6):
+    def __init__(self, dropout: float = 0.6, dtype=torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.conv2d_1a = BasicConv2d(3, 32, 3, stride=2)
-        self.conv2d_2a = BasicConv2d(32, 32, 3)
-        self.conv2d_2b = BasicConv2d(32, 64, 3, padding=1)
-        self.conv2d_3b = BasicConv2d(64, 80, 1)
-        self.conv2d_4a = BasicConv2d(80, 192, 3)
-        self.conv2d_4b = BasicConv2d(192, 256, 3, stride=2)
-        self.repeat_1 = nn.Sequential(*[Block35(0.17) for _ in range(5)])
-        self.mixed_6a = Mixed6a()
-        self.repeat_2 = nn.Sequential(*[Block17(0.10) for _ in range(10)])
-        self.mixed_7a = Mixed7a()
-        self.repeat_3 = nn.Sequential(*[Block8(0.20) for _ in range(5)])
-        self.block8 = Block8(no_relu=True)
+        self.dtype = dt = as_compute_dtype(dtype)
+        self.conv2d_1a = BasicConv2d(3, 32, 3, stride=2, dtype=dt)
+        self.conv2d_2a = BasicConv2d(32, 32, 3, dtype=dt)
+        self.conv2d_2b = BasicConv2d(32, 64, 3, padding=1, dtype=dt)
+        self.conv2d_3b = BasicConv2d(64, 80, 1, dtype=dt)
+        self.conv2d_4a = BasicConv2d(80, 192, 3, dtype=dt)
+        self.conv2d_4b = BasicConv2d(192, 256, 3, stride=2, dtype=dt)
+        self.repeat_1 = nn.Sequential(*[Block35(0.17, dt) for _ in range(5)])
+        self.mixed_6a = Mixed6a(dt)
+        self.repeat_2 = nn.Sequential(*[Block17(0.10, dt) for _ in range(10)])
+        self.mixed_7a = Mixed7a(dt)
+        self.repeat_3 = nn.Sequential(*[Block8(0.20, dtype=dt) for _ in range(5)])
+        self.block8 = Block8(no_relu=True, dtype=dt)
         self.last_linear = nn.Linear(1792, 512, bias=False)
         self.last_bn = BatchNorm1d(512, eps=BN_EPS)
 
@@ -169,7 +196,8 @@ class InceptionResnetV1(nn.Module):
                 f"InceptionResnetV1 needs inputs >= {MIN_INPUT}px, got "
                 f"{tuple(x.shape[1:3])} (the FaceNet contract is 160x160)"
             )
-        x = x.to(self.conv2d_1a.conv.weight.dtype).permute(0, 3, 1, 2)
+        entry = self.conv2d_1a.conv.weight.dtype if self.dtype == torch.float32 else self.dtype
+        x = x.to(entry).permute(0, 3, 1, 2)
         x = self.conv2d_2b(self.conv2d_2a(self.conv2d_1a(x)))
         x = _maxpool(x)
         x = self.conv2d_4b(self.conv2d_4a(self.conv2d_3b(x)))

@@ -1,9 +1,20 @@
 """Training-mode layers shared by the port's models, with flax's semantics.
 
-- ``BatchNorm1d`` / ``BatchNorm2d``: in training mode they normalise the
-  batch by its biased variance, as both libraries do, and update the running
-  statistics as flax's ``BatchNorm`` does (``momentum`` 0.9 on the running
-  value, the variance ``E[x²] - E[x]²`` of the batch clipped at 0, biased).
+- ``as_compute_dtype`` and ``Conv2d``: the models' compute ``dtype`` (float32,
+  bfloat16 or float16) as flax's ``nn.Conv(dtype=...)`` applies it. The
+  parameters stay float32; the input, kernel and bias are rounded to the
+  dtype, the convolution's output is rounded to it, and the bias add is
+  rounded again (on the CPU a bias-free bf16 output stays float32: each is
+  read only by a batch norm, and XLA's jitted graph drops that rounding).
+  On the CPU the convolution is a float32 one of the rounded operands (XLA's
+  CPU bits; PyTorch's own CPU bf16 convolution differs by an ulp here and
+  there); on the card it is cuDNN's in the dtype (float32 accumulation).
+- ``BatchNorm1d`` / ``BatchNorm2d``: a bfloat16 or float16 input is computed
+  in float32 and the output is float32, as flax's with ``dtype=float32``.
+  In training mode they normalise the batch by its biased variance, as both
+  libraries do, and update the running statistics as flax's ``BatchNorm``
+  does (``momentum`` 0.9 on the running value, the variance ``E[x²] -
+  E[x]²`` of the batch clipped at 0, biased).
   ``torch.nn.BatchNorm`` would update ``running_var`` with the unbiased
   variance. In evaluation mode they are ``torch.nn.BatchNorm``.
 - ``dropout``: flax's ``Dropout`` (keep with probability ``1 - p``, kept
@@ -33,6 +44,53 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from facerecognition_tpu_torch.parallel.collectives import BatchShard, all_reduce_sum
+
+#: The compute dtypes a model takes, by name.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+#: The reduced-precision ones, which the batch norms widen to float32.
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def as_compute_dtype(dtype) -> torch.dtype:
+    """``torch.float32`` / ``torch.bfloat16`` / ``torch.float16`` or the
+    name of one → the torch dtype; anything else raises ``ValueError``."""
+    if isinstance(dtype, str) and dtype in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[dtype]
+    if isinstance(dtype, torch.dtype) and dtype in COMPUTE_DTYPES.values():
+        return dtype
+    raise ValueError(f"unknown compute dtype {dtype!r}; have {sorted(COMPUTE_DTYPES)}")
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` as flax's ``nn.Conv(
+    dtype=...)`` does (float32: ``nn.Conv2d`` itself). The weights stay in
+    their own dtype; the output is in the compute dtype, except on the CPU
+    for a bf16 convolution without bias: every one in the models feeds a
+    float32 batch norm, and XLA's jitted graph hands that batch norm the
+    float32 sum unrounded (its excess precision drops the round trip through
+    bf16), so the output is that float32 sum. On the card cuDNN writes it in
+    bf16 and the batch norm widens it: one rounding more than the CPU."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = as_compute_dtype(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        x, w = x.to(dt), self.weight.to(dt)
+        args = (None, self.stride, self.padding, self.dilation, self.groups)
+        if x.device.type != "cpu":
+            y = F.conv2d(x, w, *args)
+        elif self.bias is None and dt == torch.bfloat16:
+            return F.conv2d(x.float(), w.float(), *args)
+        else:  # XLA's bits: float32 sums of the rounded operands, rounded
+            y = F.conv2d(x.float(), w.float(), *args).to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y
+
 
 #: flax's BatchNorm momentum: running = momentum * running + (1 - momentum) * batch.
 FLAX_MOMENTUM = 0.9
@@ -119,6 +177,8 @@ class _FlaxTrainStats:
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in HALF_DTYPES:
+            x = x.float()
         if not self.training:
             return super().forward(x)
         if _shard is not None:

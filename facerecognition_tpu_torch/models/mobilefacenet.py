@@ -12,7 +12,10 @@ flax-statistics ``BatchNorm1d`` / ``BatchNorm2d`` (momentum 0.9, eps 1e-5).
 Input: (B, 112, 112, 3) normalised NHWC. Output: (B, embedding_size), not
 normalised (callers L2-normalise). ``MobileFaceNetArcFace`` adds the port's
 ``ArcMarginProduct`` head with ``ArcFaceModel``'s contract, so
-``training.steps.make_arcface_train_step`` trains it.
+``training.steps.make_arcface_train_step`` trains it. ``dtype`` is the
+convolutions' compute dtype (the flax field): the batch norms return
+float32, so the PReLUs, the residual sums, ``fc`` and its batch norm run in
+float32, as JAX's type promotion has them.
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ import torch
 import torch.nn as nn
 
 from facerecognition_tpu_torch.models.arcface import ArcMarginProduct, Margin
-from facerecognition_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d
+from facerecognition_tpu_torch.models.layers import (
+    BatchNorm1d,
+    BatchNorm2d,
+    Conv2d,
+    as_compute_dtype,
+)
 
 BN_EPS = 1e-5
 #: (expansion, output channels, blocks, stride of the first block) per stage.
@@ -40,11 +48,12 @@ class ConvBlock(nn.Module):
     ``linear`` (a bottleneck's projection)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, strides: int = 1,
-                 groups: int = 1, linear: bool = False):
+                 groups: int = 1, linear: bool = False, dtype=torch.float32):
         super().__init__()
         pad = kernel // 2
         self.linear = linear
-        self.conv = nn.Conv2d(cin, features, kernel, strides, pad, groups=groups, bias=False)
+        self.conv = Conv2d(cin, features, kernel, strides, pad, groups=groups, bias=False,
+                           compute_dtype=dtype)
         self.bn = BatchNorm2d(features, eps=BN_EPS)
         self.prelu = None if linear else nn.Parameter(torch.full((features,), 0.25))
 
@@ -56,13 +65,14 @@ class ConvBlock(nn.Module):
 class Bottleneck(nn.Module):
     """MobileNetV2's inverted residual with PReLU (expansion t)."""
 
-    def __init__(self, cin: int, features: int, strides: int = 1, expansion: int = 2):
+    def __init__(self, cin: int, features: int, strides: int = 1, expansion: int = 2,
+                 dtype=torch.float32):
         super().__init__()
         hidden = cin * expansion
         self.residual = strides == 1 and cin == features
-        self.expand = ConvBlock(cin, hidden, 1)
-        self.dw = ConvBlock(hidden, hidden, 3, strides, groups=hidden)
-        self.project = ConvBlock(hidden, features, 1, linear=True)
+        self.expand = ConvBlock(cin, hidden, 1, dtype=dtype)
+        self.dw = ConvBlock(hidden, hidden, 3, strides, groups=hidden, dtype=dtype)
+        self.project = ConvBlock(hidden, features, 1, linear=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.project(self.dw(self.expand(x)))
@@ -73,26 +83,28 @@ class MobileFaceNet(nn.Module):
     """(B, S, S, 3) NHWC → (B, embedding_size); the global depthwise
     convolution spans the last map, 7x7 at 112²."""
 
-    def __init__(self, embedding_size: int = 512, input_size: int = 112):
+    def __init__(self, embedding_size: int = 512, input_size: int = 112, dtype=torch.float32):
         super().__init__()
-        self.conv1 = ConvBlock(3, 64, 3, 2)
-        self.dw_conv = ConvBlock(64, 64, 3, 1, groups=64)
+        self.dtype = dt = as_compute_dtype(dtype)
+        self.conv1 = ConvBlock(3, 64, 3, 2, dtype=dt)
+        self.dw_conv = ConvBlock(64, 64, 3, 1, groups=64, dtype=dt)
         cin = 64
         for i, (t, c, n, s) in enumerate(STAGES):
             for b in range(n):
-                self.add_module(f"stage{i}_{b}", Bottleneck(cin, c, s if b == 0 else 1, t))
+                self.add_module(f"stage{i}_{b}", Bottleneck(cin, c, s if b == 0 else 1, t, dt))
                 cin = c
-        self.conv2 = ConvBlock(cin, 512, 1)
+        self.conv2 = ConvBlock(cin, 512, 1, dtype=dt)
         side = input_size
         for stride in (2, 2, 2, 2):  # conv1 and the stages' strides: 112 → 7
             side = (side - 1) // stride + 1
-        self.gdconv = nn.Conv2d(512, 512, side, groups=512, bias=False)
+        self.gdconv = Conv2d(512, 512, side, groups=512, bias=False, compute_dtype=dt)
         self.gdbn = BatchNorm2d(512, eps=BN_EPS)
         self.fc = nn.Linear(512, embedding_size, bias=False)
         self.fc_bn = BatchNorm1d(embedding_size, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dw_conv(self.conv1(x.to(self.fc.weight.dtype).permute(0, 3, 1, 2)))
+        entry = self.fc.weight.dtype if self.dtype == torch.float32 else self.dtype
+        x = self.dw_conv(self.conv1(x.to(entry).permute(0, 3, 1, 2)))
         for i, (_, _, n, _) in enumerate(STAGES):
             for b in range(n):
                 x = getattr(self, f"stage{i}_{b}")(x)
@@ -106,9 +118,11 @@ class MobileFaceNetArcFace(nn.Module):
     them."""
 
     def __init__(self, num_classes: int = 0, embedding_size: int = 512, scale: float = 64.0,
-                 margin: float = 0.5, easy_margin: bool = False, input_size: int = 112):
+                 margin: float = 0.5, easy_margin: bool = False, input_size: int = 112,
+                 dtype=torch.float32):
         super().__init__()
-        self.backbone = MobileFaceNet(embedding_size, input_size)
+        self.backbone = MobileFaceNet(embedding_size, input_size, dtype)
+        self.dtype = self.backbone.dtype
         self.arcface = (
             ArcMarginProduct(num_classes, embedding_size, scale, margin, easy_margin)
             if num_classes > 0 else None

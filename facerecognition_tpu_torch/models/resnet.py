@@ -3,7 +3,10 @@
 Counterpart of ``facerecognition_tpu/models/resnet.py`` for any
 ``stage_sizes``. Input is NHWC, as in the JAX package; module names follow
 the flax ones (``layer1_0``, ``downsample_conv``) so ``convert.py`` carries
-weights across by name. In training mode (``module.train()``) the batch
+weights across by name. ``dtype`` (float32, bfloat16 or float16, or its
+name) is the convolutions' compute dtype, as the flax field: the batch norms,
+and so every block's output and the feature map, stay float32
+(``models/layers.py``). In training mode (``module.train()``) the batch
 norms update their running statistics as flax's do (``models/layers.py``).
 """
 
@@ -15,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from facerecognition_tpu_torch.models.layers import BatchNorm2d
+from facerecognition_tpu_torch.models.layers import BatchNorm2d, Conv2d, as_compute_dtype
 
 BN_EPS = 1e-5
 
@@ -23,16 +26,20 @@ BN_EPS = 1e-5
 class Bottleneck(nn.Module):
     """1x1 → 3x3 (strided) → 1x1 with expansion 4, optional projection."""
 
-    def __init__(self, cin: int, width: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, cin: int, width: int, stride: int = 1, downsample: bool = False,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
+        dt = as_compute_dtype(dtype)
+        self.conv1 = Conv2d(cin, width, 1, bias=False, compute_dtype=dt)
         self.bn1 = BatchNorm2d(width, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, bias=False,
+                            compute_dtype=dt)
         self.bn2 = BatchNorm2d(width, eps=BN_EPS)
-        self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
+        self.conv3 = Conv2d(width, width * 4, 1, bias=False, compute_dtype=dt)
         self.bn3 = BatchNorm2d(width * 4, eps=BN_EPS)
         if downsample:
-            self.downsample_conv = nn.Conv2d(cin, width * 4, 1, stride=stride, bias=False)
+            self.downsample_conv = Conv2d(cin, width * 4, 1, stride=stride, bias=False,
+                                          compute_dtype=dt)
             self.downsample_bn = BatchNorm2d(width * 4, eps=BN_EPS)
         else:
             self.downsample_conv = None
@@ -52,10 +59,11 @@ class ResNet50Backbone(nn.Module):
     with ``return_feature_map`` also the layer-4 map before pooling, NCHW
     (B, 2048, H/32, W/32)."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), dtype=torch.float32):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.dtype = as_compute_dtype(dtype)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=self.dtype)
         self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.blocks = []
         cin = 64
@@ -66,13 +74,14 @@ class ResNet50Backbone(nn.Module):
                 name = f"layer{stage + 1}_{block}"
                 self.add_module(
                     name,
-                    Bottleneck(cin, width, stride if block == 0 else 1, block == 0),
+                    Bottleneck(cin, width, stride if block == 0 else 1, block == 0, self.dtype),
                 )
                 self.blocks.append(name)
                 cin = width * 4
 
     def forward(self, x: torch.Tensor, return_feature_map: bool = False):
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        entry = self.conv1.weight.dtype if self.dtype == torch.float32 else self.dtype
+        x = x.to(entry).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         # MaxPool2d pads with -inf, as the JAX model pads before its pool.
         x = F.max_pool2d(x, 3, stride=2, padding=1)

@@ -22,6 +22,12 @@ Public functions:
 operands and integer sums, ``warp_mxu``'s module text) for every warp; the
 resizes take ``"int8"`` as the bf16 path, as JAX's resize does.
 
+``out_dtype`` (``detector_input``, ``embedder_input``, ``affine_warp``):
+float32, bfloat16 or float16 (or its name), the model's compute dtype. The
+kernel rounds each float32 value it computes once to it, to nearest even,
+as it stores it (JAX's ``x.astype(dtype)`` at the model's entry), so no
+cast follows the warp; the plain version rounds its float32 result alike.
+
 A tensor on the CPU takes the plain version (the composition of the plain
 functions). A CUDA tensor launches the kernel or raises; nothing falls back.
 uint8 frames are read as they are (no float copy); float32 frames are read
@@ -37,11 +43,14 @@ import numpy as np
 import torch
 
 from facerecognition_tpu_torch import _build
+from facerecognition_tpu_torch.models.layers import as_compute_dtype
 from facerecognition_tpu_torch.ops import warp_mxu
 from facerecognition_tpu_torch.ops.image import normalize_imagenet_style
 from facerecognition_tpu_torch.ops.umeyama import ARCFACE_TEMPLATE, invert_affine
 
-#: Kernel launches (one per call on a CUDA tensor).
+#: Kernel launches (one per call on a CUDA tensor), by kind: the role
+#: (``resize``, ``align``, ``window``, ``matrix``) and the output dtype, as in
+#: ``"align/bfloat16"``.
 launches = _build.LaunchCounter()
 
 _INF = float("inf")
@@ -58,7 +67,7 @@ class _Args(ctypes.Structure):
         ("matrices", ctypes.c_void_p),
         *((name, ctypes.c_int) for name in (
             "frames_u8", "n_frames", "H", "W", "slots", "per_frame", "out_h", "out_w",
-            "window", "fast", "normalize",
+            "window", "fast", "normalize", "out_dtype",
         )),
         *((name, ctypes.c_float) for name in (
             "lm_scale_x", "lm_scale_y", "lm_min", "lm_max_x", "lm_max_y",
@@ -93,6 +102,10 @@ EMBEDDER_NORM = (_f32_reciprocal(255.0), 0.5, _f32_reciprocal(0.5))
 def _mode(fast) -> int:
     """The kernel's ``fast`` field: 0 float32, 1 bf16, 2 int8."""
     return 2 if fast == "int8" else int(fast)
+
+
+#: The kernel's ``out_dtype`` field by output dtype.
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_frames(frames: torch.Tensor) -> None:
@@ -143,9 +156,10 @@ def _launch(
     norm: Optional[tuple[float, float, float]] = None,
     slot_params: Optional[torch.Tensor] = None,
     matrices: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """One launch: (S, 3, out_h, out_w) float32 planar, returned as the
-    (S, out_h, out_w, 3) view. Without landmarks or matrices slot s resizes
+    """One launch: (S, 3, out_h, out_w) planar in ``out_dtype``, returned as
+    the (S, out_h, out_w, 3) view. Without landmarks or matrices slot s resizes
     frame s; with (B, 2, 3) forward ``matrices`` slot s warps frame s by its
     map; with (B, M, 5, 2) landmarks slot s warps frame s // M, from its
     ``window``² crop when ``window`` > 0."""
@@ -173,7 +187,7 @@ def _launch(
         or slot_params.device != device or not slot_params.is_contiguous()
     ):
         raise ValueError(f"slot_params must be a contiguous ({slots}, 8) float32 tensor")
-    out = torch.empty((slots, 3, out_h, out_w), dtype=torch.float32, device=device)
+    out = torch.empty((slots, 3, out_h, out_w), dtype=out_dtype, device=device)
     lo, hi_h = warp_mxu.inside_bounds(region[0])
     _, hi_w = warp_mxu.inside_bounds(region[1])
     norm_mul, norm_sub, norm_scale = norm or (1.0, 0.0, 1.0)
@@ -186,6 +200,7 @@ def _launch(
         frames_u8=int(frames.dtype == torch.uint8), n_frames=b, H=h, W=w,
         slots=slots, per_frame=per_frame, out_h=out_h, out_w=out_w,
         window=window, fast=_mode(fast), normalize=int(norm is not None),
+        out_dtype=_OUT_DTYPES[out_dtype],
         lm_scale_x=lm_scale[0], lm_scale_y=lm_scale[1], lm_min=lm_bounds[0],
         lm_max_x=lm_bounds[1], lm_max_y=lm_bounds[2],
         tmpl=(ctypes.c_float * 10)(*_template(out_h)),
@@ -199,7 +214,9 @@ def _launch(
         raise ValueError("warp_sample kernel refused its arguments")
     if err:
         raise RuntimeError(f"warp_sample kernel launch failed: CUDA error {err}")
-    launches.add()
+    role = ("matrix" if matrices is not None else "resize" if landmarks is None
+            else "window" if window else "align")
+    launches.add(f"{role}/{str(out_dtype).removeprefix('torch.')}")
     return out.permute(0, 2, 3, 1)
 
 
@@ -230,8 +247,11 @@ def _align_plain(frames, landmarks, out_size, window, fast):
     return warp_mxu.align_crop_mxu_batch(rep, landmarks.reshape(b * m, 5, 2), out_size, fast)
 
 
-def detector_input_plain(frames: torch.Tensor, size: int, fast: bool = True) -> torch.Tensor:
-    return warp_mxu.bilinear_resize_mxu_batch(frames, size, size, fast) / 127.5 - 1.0
+def detector_input_plain(
+    frames: torch.Tensor, size: int, fast: bool = True, out_dtype=torch.float32
+) -> torch.Tensor:
+    x = warp_mxu.bilinear_resize_mxu_batch(frames, size, size, fast) / 127.5 - 1.0
+    return x.to(as_compute_dtype(out_dtype))
 
 
 def embedder_input_plain(
@@ -241,10 +261,12 @@ def embedder_input_plain(
     out_size: int = 112,
     window: Optional[int] = None,
     fast: bool = True,
+    out_dtype=torch.float32,
 ) -> torch.Tensor:
     _, h, w, _ = frames.shape
     lms = scale_landmarks(landmarks, h, w, det_size)
-    return normalize_imagenet_style(_align_plain(frames, lms, out_size, window, fast))
+    x = normalize_imagenet_style(_align_plain(frames, lms, out_size, window, fast))
+    return x.to(as_compute_dtype(out_dtype))
 
 
 def slot_parameters_plain(
@@ -318,17 +340,19 @@ def align_crop_window(
 
 
 def affine_warp(
-    frames: torch.Tensor, ms: torch.Tensor, out_h: int, out_w: int, fast: bool = False
+    frames: torch.Tensor, ms: torch.Tensor, out_h: int, out_w: int, fast: bool = False,
+    out_dtype=torch.float32,
 ) -> torch.Tensor:
     """``warp_mxu.affine_warp_mxu_batch``: frames (B, H, W, 3) uint8 or
     float32, each warped by its (B, 2, 3) forward map (cv2.warpAffine
-    convention) → (B, out_h, out_w, 3) float32, zero outside the frame. The
-    kernel inverts each map in the launch (on the card an NHWC view of NCHW
-    memory)."""
+    convention) → (B, out_h, out_w, 3) in ``out_dtype``, zero outside the
+    frame. The kernel inverts each map in the launch (on the card an NHWC
+    view of NCHW memory)."""
     warp_mxu.check_fast(fast)
+    out_dtype = as_compute_dtype(out_dtype)
     if frames.device.type == "cpu":
-        return warp_mxu.affine_warp_mxu_batch(frames, ms, out_h, out_w, fast=fast)
-    return _launch(frames, out_h, out_w, fast, matrices=ms)
+        return warp_mxu.affine_warp_mxu_batch(frames, ms, out_h, out_w, fast=fast).to(out_dtype)
+    return _launch(frames, out_h, out_w, fast, matrices=ms, out_dtype=out_dtype)
 
 
 def affine_slot_parameters(frames: torch.Tensor, ms: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -342,14 +366,17 @@ def affine_slot_parameters(frames: torch.Tensor, ms: torch.Tensor, out_size: int
     return params
 
 
-def detector_input(frames: torch.Tensor, size: int, fast: bool = True) -> torch.Tensor:
+def detector_input(
+    frames: torch.Tensor, size: int, fast: bool = True, out_dtype=torch.float32
+) -> torch.Tensor:
     """The detector's input: ``bilinear_resize(frames, size, size, fast) /
-    127.5 - 1.0``, (B, size, size, 3) float32 (on the card an NHWC view of
-    NCHW memory)."""
+    127.5 - 1.0``, (B, size, size, 3) in ``out_dtype`` (on the card an NHWC
+    view of NCHW memory)."""
     warp_mxu.check_fast(fast)
+    out_dtype = as_compute_dtype(out_dtype)
     if frames.device.type == "cpu":
-        return detector_input_plain(frames, size, fast)
-    return _launch(frames, size, size, bool(fast), norm=DETECTOR_NORM)
+        return detector_input_plain(frames, size, fast, out_dtype)
+    return _launch(frames, size, size, bool(fast), norm=DETECTOR_NORM, out_dtype=out_dtype)
 
 
 def embedder_input(
@@ -359,20 +386,24 @@ def embedder_input(
     out_size: int = 112,
     window: Optional[int] = None,
     fast: bool = True,
+    out_dtype=torch.float32,
 ) -> torch.Tensor:
     """The embedder's input: landmarks (B, M, 5, 2) in detector pixels
     (``det_size``²) scaled to the (B, H, W, 3) frames and clamped into them,
     each slot aligned from its whole frame (``window`` None) or from its
     ``window``² crop, then ``normalize_imagenet_style``: (B·M, out_size,
-    out_size, 3) float32 (on the card an NHWC view of NCHW memory)."""
+    out_size, 3) in ``out_dtype`` (on the card an NHWC view of NCHW
+    memory)."""
     warp_mxu.check_fast(fast)
+    out_dtype = as_compute_dtype(out_dtype)
     if frames.device.type == "cpu":
-        return embedder_input_plain(frames, landmarks, det_size, out_size, window, fast)
+        return embedder_input_plain(frames, landmarks, det_size, out_size, window, fast, out_dtype)
     _, h, w, _ = frames.shape
     scale, bounds = _frame_scale(h, w, det_size)
     win = min(window, h, w) if window else 0
     return _launch(
-        frames, out_size, out_size, fast, landmarks, win, scale, bounds, EMBEDDER_NORM
+        frames, out_size, out_size, fast, landmarks, win, scale, bounds, EMBEDDER_NORM,
+        out_dtype=out_dtype,
     )
 
 

@@ -73,13 +73,13 @@ def load_detector_checkpoint(
     return arch, variables, cal
 
 
-def random_blaze_net(seed: int = 0) -> torch.nn.Module:
-    """A randomly initialised ``BlazeFaceNet`` (on the CPU), drawn from a
-    ``torch.Generator`` seeded with ``seed``: flax's initialisers' family
-    (LeCun-normal kernels, variance 1 / fan-in; zero biases), not flax's
-    numbers, which come from JAX's PRNG."""
+def random_blaze_net(seed: int = 0, dtype=torch.float32) -> torch.nn.Module:
+    """A randomly initialised ``BlazeFaceNet`` (on the CPU, computing in
+    ``dtype``), drawn from a ``torch.Generator`` seeded with ``seed``: flax's
+    initialisers' family (LeCun-normal kernels, variance 1 / fan-in; zero
+    biases), not flax's numbers, which come from JAX's PRNG."""
     gen = torch.Generator().manual_seed(seed)
-    net = build_detector_net("blaze")
+    net = build_detector_net("blaze", dtype)
     with torch.no_grad():
         for conv in net.modules():
             if isinstance(conv, torch.nn.Conv2d):
@@ -100,7 +100,9 @@ class FaceDetector:
     ``iou_threshold`` and ``max_faces`` set the NMS of ``detect_all`` (the
     fused engine takes its own ``max_faces`` and this ``iou_threshold``).
     ``backend`` is ``"blazeface"``, the only one, as in the JAX detector; a
-    checkpoint without Platt calibration warns, as there.
+    checkpoint without Platt calibration warns, as there. ``dtype``
+    (float32, bfloat16 or float16, or its name) is the net's compute dtype:
+    its raw output, and so the post-process, stay float32.
     """
 
     def __init__(
@@ -113,6 +115,7 @@ class FaceDetector:
         iou_threshold: float = 0.3,
         max_faces: int = 16,
         weights: Optional[Union[str, Mapping]] = None,
+        dtype=torch.float32,
         device: DeviceLike = None,
     ):
         if backend != "blazeface":
@@ -133,7 +136,7 @@ class FaceDetector:
             weights = default_detector_checkpoint()
         if weights is None:
             self.arch, self._calibration = "blaze", None
-            net = random_blaze_net()
+            net = random_blaze_net(dtype=dtype)
         else:
             self.arch, variables, self._calibration = load_detector_checkpoint(weights)
             if self._calibration is None:
@@ -144,9 +147,10 @@ class FaceDetector:
                     "training.train_detector.fit_score_calibration.",
                     stacklevel=2,
                 )
-            net = build_detector_net(self.arch)
+            net = build_detector_net(self.arch, dtype)
             load_flax_variables(net, variables)
         self.net = net.to(self.device).eval()
+        self.dtype = self.net.dtype
         self.anchors = torch.as_tensor(anchor_centers(input_size), device=self.device)
 
     @torch.no_grad()

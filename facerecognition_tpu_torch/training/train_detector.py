@@ -313,8 +313,11 @@ def train_detector_curriculum(
     backgrounds, hard negatives; see `synthetic_faces.render_scene`).
 
     Scenes are rendered in ``prefetch_threads`` producer threads, each from
-    ``np.random.default_rng((seed, tid))``, into a queue of
-    ``2 * prefetch_threads`` batches; a batch crosses to the card as uint8
+    ``np.random.default_rng((seed, tid))`` into a queue of two batches of
+    its own; step ``i`` takes the next batch of thread ``i % prefetch_threads``,
+    so the batches and their order follow from the seed, whatever the
+    threads' timing (JAX's trainer takes whichever batch is ready first).
+    A batch crosses to the card as uint8
     (truncated from the float scene, as the JAX trainer's
     ``astype(np.uint8)``) and is normalised there. A producer that raises
     stops training with ``RuntimeError`` (chained to its error), as does the
@@ -340,7 +343,7 @@ def train_detector_curriculum(
     state = detector_train_state(net, warmup_cosine_decay(0.0, config.lr, warmup, config.steps))
     step_fn = make_detector_train_step(net, anchors)
 
-    q: "queue.Queue" = queue.Queue(maxsize=config.prefetch_threads * 2)
+    queues: "list[queue.Queue]" = [queue.Queue(maxsize=2) for _ in range(config.prefetch_threads)]
     stop = threading.Event()
     producer_errors: list[BaseException] = []
 
@@ -358,7 +361,7 @@ def train_detector_curriculum(
                 )
                 while not stop.is_set():
                     try:
-                        q.put(batch, timeout=0.5)
+                        queues[tid].put(batch, timeout=0.5)
                         break
                     except queue.Full:
                         continue
@@ -380,15 +383,16 @@ def train_detector_curriculum(
     try:
         for step in range(config.steps):
             t0 = time.perf_counter()
+            tid = step % config.prefetch_threads
             while True:
                 try:
-                    imgs, gb, gl, gv = q.get(timeout=2.0)
+                    imgs, gb, gl, gv = queues[tid].get(timeout=2.0)
                     break
                 except queue.Empty:
                     if producer_errors:
                         raise RuntimeError("scene producer thread died") from producer_errors[0]
-                    if not any(t.is_alive() for t in threads):
-                        raise RuntimeError("all scene producer threads exited")
+                    if not threads[tid].is_alive():
+                        raise RuntimeError(f"scene producer thread {tid} exited")
             if timings is not None:
                 timings["wait_s"].append(time.perf_counter() - t0)
                 if on_card:

@@ -170,6 +170,28 @@ def test_producer_death_raises_not_hangs(monkeypatch):
     assert "render exploded" in str(err.value.__cause__)
 
 
+def test_curriculum_data_order_follows_the_seed(monkeypatch):
+    """Two runs of the same config train on the same batches in the same
+    order, however the producer threads' timing falls (here each render
+    sleeps a random, unseeded while): the weights come out bit for bit."""
+    import random
+    import time as _time
+
+    render = synthetic_faces.scene_batch
+
+    def slow_render(*args, **kwargs):
+        _time.sleep(random.random() * 0.02)
+        return render(*args, **kwargs)
+
+    monkeypatch.setattr(synthetic_faces, "scene_batch", slow_render)
+    cfg = td.CurriculumConfig(input_size=64, batch_size=2, steps=6, prefetch_threads=3)
+    runs = [td.train_detector_curriculum(cfg, device="cpu")[0]["params"] for _ in range(2)]
+    leaves = [jax.tree_util.tree_leaves_with_path(params) for params in runs]
+    assert [path for path, _ in leaves[0]] == [path for path, _ in leaves[1]]
+    for (path, a), (_, b) in zip(*leaves):
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(path))
+
+
 def _stub_scenes(monkeypatch, n: int, module=synthetic_faces, seed: int = 0):
     """A detector stub whose detections carry logits with P(tp | z) =
     sigmoid(2.5 z + 1), and ``module``'s scenes replaced by one GT at

@@ -172,6 +172,29 @@ def test_batch_loader_equals_jax(image_tree, size):
         np.testing.assert_array_equal(gl, wl)
 
 
+@pytest.mark.parametrize("size", [112, 128])
+def test_batch_loader_per_file_equals_jax(size):
+    """``use_native=False``: each file read alone (the single-file decoder,
+    PIL's bilinear resize) gives the JAX loader's per-file PIL batches bit
+    for bit, on the committed PNG fixtures (128², resized to 112² and read
+    as they are at 128²)."""
+    index = FolderDataset(os.path.join(os.path.dirname(__file__), "..",
+                                       "facerecognition_tpu_torch", "fixtures", "faces"))
+    png = np.array([i for i, p in enumerate(index.paths) if p.endswith(".png")])
+    assert len(png) == 16
+    batches = [png[:5], png[5:], png[[3, 3, 0]]]
+    port = BatchLoader(index, iter(batches), image_size=size, n_workers=2, use_native=False)
+    ref = JaxBatchLoader(index, iter(batches), image_size=size, n_workers=2, use_native=False)
+    assert ref._native is None  # the JAX loader's per-file PIL path
+    got, want = list(port), list(ref)
+    port.stop()
+    assert len(got) == len(want) == 3
+    for (gi, gl), (wi, wl) in zip(got, want):
+        assert gi.dtype == np.uint8 and gi.shape[1:] == (size, size, 3)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)
+
+
 def test_batch_loader_zero_fills_other_formats(tmp_path, image_tree):
     """A row the decoder rejects (here a BMP, which the JAX loader reads with
     PIL) is zero-filled, with a warning."""
