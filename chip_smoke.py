@@ -243,6 +243,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 WATCHDOG_S = 900  # a child phase's process
 MAIN_WATCHDOG_S = 1150  # the whole run, under the 1200 s the script has
@@ -380,6 +381,21 @@ APPS_CLIENTS, APPS_REQUESTS = 4, 32  # socket clients x /recognize requests each
 AFFINE_CASES = (("arcface_f32", 128, 112, "float32"), ("arcface_u8", 128, 112, "uint8"),
                 ("facenet_u8", 32, 160, "uint8"))
 PARITY_ARC_B, PARITY_FN_PK = 16, (4, 2)
+#: The 16-bit parity step (``half_parity_step``) starts ArcFace from this
+#: many float32 steps on the card: at random init a ResNet50's bf16
+#: gradients over 16 samples are 0.9-2.2 of their tensors' scale off float64
+#: on the CPU itself, and a gate at 4x such an error passes a zero gradient;
+#: after 100 or 200 steps the worst tensor's was 0.063 or 0.069 (RMS, on an
+#: H100's host).
+PARITY_WARMUP = 100
+PARITY_FACES = (16, 4)  # rendered identities x samples the warm-up and the 16-bit step read
+PARITY_OWN_MAX = 0.25  # the CPU's own 16-bit error of every gated tensor, of its RMS
+TRAIN_DTYPE_LOSS_REL = 2e-3  # the card's 16-bit loss against the CPU's, relative
+#: Steps, batch, classes, fixed batches and peak lr of the bf16-against-float32
+#: runs: at lr 0.1 or two batches the loss still falls steeply at step 30, at
+#: 1.0 it jumps before it falls.
+TRAIN_DTYPE_RUN = (30, 64, 100, 1, 0.3)
+TRAIN_DTYPE_FINAL_REL = 0.10  # the bf16 run's final loss against the float32 run's
 TRAIN_IDENTITIES, TRAIN_SAMPLES, TRAIN_SIDE = 1_024, 4, 128
 TRAIN_ARC_STEPS, TRAIN_FN_STEPS = 4, 2  # cut from 8, 4 for the script's time
 TRAIN_CLASSES = 9_343
@@ -2627,6 +2643,149 @@ def parity_step(kind: str, device) -> dict:
     return line
 
 
+def rms_rel(a, b, unit: float) -> float:
+    """RMS(a - b) / max(RMS(b), unit): ``unit`` is 1e-3 of the largest RMS
+    of the tensors of a kind, for a tensor whose true value is about 0."""
+    return (a - b).pow(2).mean().sqrt().item() / max(b.pow(2).mean().sqrt().item(), unit)
+
+
+def half_parity_step(kind: str, device) -> dict:
+    """One train step in bf16 on the card and on the CPU, and the float32
+    model in float64 on the CPU (the truth), from one trained start on a
+    fixed batch of rendered faces (``PARITY_FACES``; augmentation none,
+    dropout 0): ArcFace (ResNet50, B 16 = 8 identities x 2, 112², SGD with
+    momentum, weight decay, clip and a warmup) from ``PARITY_WARMUP``
+    float32 SGD steps on the card under ``deterministic_algorithms``, or
+    FaceNet (P 4 x K 2, 160², semi_hard, adam) from the shipped weights.
+    The CPU's plain path computes XLA's 16-bit graph; cuDNN on the card
+    rounds once more (each convolution's output). Errors per tensor by
+    ``rms_rel``; "gated" tensors: the gradients, the BN statistics and the
+    SGD run's updated parameters (adam's first update is about lr·sign(g):
+    printed only). Gates: the loss is not 0; the CPU's own error of every
+    gated tensor below ``PARITY_OWN_MAX`` (else a zero tensor would pass the
+    next gates); pooled over the gated tensors (the RMS of their errors)
+    the card's error at most 2x the CPU's own; ArcFace: each gated tensor's
+    card error at most 4x the CPU's own, or 1e-3, and the loss within
+    ``TRAIN_DTYPE_LOSS_REL`` of the CPU's. FaceNet's semi-hard loss sums a
+    few triplets that the card's extra roundings move (2.9% from the CPU's,
+    a few tensors 5x the CPU's own error on an H100): its loss against
+    float64 within 4x the CPU's own, and no per-tensor gate."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.inference.extract_embeddings import load_facenet_checkpoint
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.facenet import FaceNetModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training import synthetic_faces as sf
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+    from facerecognition_tpu_torch.training.schedules import build_schedule
+    from facerecognition_tpu_torch.training.train_arcface import normalize_u8
+
+    dtype = "bfloat16"
+    ids, per = PARITY_FACES
+    side = 112 if kind == "arcface" else 160
+    faces, face_ids = sf.identity_dataset(ids, per, side, seed=SEED + 60 + (kind == "facenet"))
+    images, labels = normalize_u8(torch.as_tensor(faces)), torch.as_tensor(face_ids).long()
+    t0 = time.perf_counter()
+    warm = None
+    if kind == "arcface":
+        build = lambda dt: ArcFaceModel(512, num_classes=ids, margin=0.2, easy_margin=True,  # noqa: E731
+                                        dropout=0.0, dtype=dt)
+        step = steps.make_arcface_train_step(label_smoothing=0.1)
+        tx = lambda m: OptaxChain(dict(m.named_parameters()), "sgd",  # noqa: E731
+                                  build_schedule(0.1, "cosine", 100, 10), momentum=0.9,
+                                  weight_decay=5e-4, grad_clip=1.0)
+        model = init_like_flax(build("float32"), torch.Generator().manual_seed(SEED + 12), ("fc",)).to(device)
+        state = steps.TrainState(model, OptaxChain(dict(model.named_parameters()), "sgd", lambda c: 0.1,
+                                                   momentum=0.9, grad_clip=5.0))
+        with deterministic_algorithms():  # each step: every identity once
+            warm = [step(state, images[j::per].to(device), labels[j::per].to(device))["loss"]
+                    for j in (n % per for n in range(PARITY_WARMUP))]
+        warm = [warm[0].item(), warm[-1].item()]
+        start = {n: t.cpu() for n, t in model.state_dict().items()}
+        pick = torch.cat([torch.arange(i * per, i * per + 2) for i in range(PARITY_ARC_B // 2)])
+    else:
+        build = lambda dt: FaceNetModel(512, dropout=0.0, dtype=dt)  # noqa: E731
+        step = steps.make_facenet_train_step(0.5, "semi_hard")
+        tx = lambda m: OptaxChain(dict(m.named_parameters()), "adam",  # noqa: E731
+                                  build_schedule(3e-4, "step", 100, step_size=10, gamma=0.5))
+        start = load_facenet_checkpoint("assets/" + FACENET_WEIGHTS).state_dict()
+        pick = torch.cat([torch.arange(i * per, i * per + 2) for i in range(PARITY_FN_PK[0])])
+    start_s = time.perf_counter() - t0
+    results = {}
+    cpu = torch.device("cpu")
+    x, y = images[pick], labels[pick]
+    for name, dev, dt in (("card", device, dtype), ("cpu", cpu, dtype), ("cpu64", cpu, "float64")):
+        wide = torch.float64 if dt == "float64" else torch.float32
+        m = build("float32" if dt == "float64" else dt)
+        m.load_state_dict(start)
+        m = m.to(dev, wide)
+        state = steps.TrainState(m, tx(m))
+        grads, metrics = step.gradients(state, x.to(dev, wide), y.to(dev))
+        check({g.dtype for g in grads.values()} == {wide}, f"{kind} {dt}: gradients in "
+              f"{sorted({str(g.dtype) for g in grads.values()})}")
+        steps.apply_gradients(state, grads)
+        results[name] = {
+            "loss": metrics["loss"].item(),
+            "grads": {n: g.detach().cpu().double() for n, g in grads.items()},
+            "state": {n: t.detach().cpu().double() for n, t in m.state_dict().items() if t.is_floating_point()},
+        }
+
+    def errors(got, want):
+        unit = 1e-3 * max(t.pow(2).mean().sqrt().item() for t in want.values())
+        return {n: rms_rel(got[n], t, unit) for n, t in want.items()}
+
+    def split(r):
+        return {"grads": r["grads"],
+                "stats": {n: t for n, t in r["state"].items() if "running_" in n},
+                "params": {n: t for n, t in r["state"].items() if "running_" not in n}}
+
+    card, cpu_r, truth = (split(results[n]) for n in ("card", "cpu", "cpu64"))
+    loss = {n: results[n]["loss"] for n in results}
+    line = {"kind": kind, "dtype": dtype, "batch": len(pick), "side": side,
+            "start": f"{PARITY_WARMUP} float32 steps" if kind == "arcface" else FACENET_WEIGHTS,
+            "warmup_loss_first_last": warm, "start_s": start_s, "loss_card": loss["card"],
+            "loss_cpu": loss["cpu"], "loss_cpu64": loss["cpu64"],
+            "loss_rel": abs(loss["card"] - loss["cpu"]) / max(abs(loss["cpu"]), 1e-30),
+            "loss_card_vs_cpu64": abs(loss["card"] - loss["cpu64"]) / max(abs(loss["cpu64"]), 1e-30),
+            "loss_cpu_vs_cpu64": abs(loss["cpu"] - loss["cpu64"]) / max(abs(loss["cpu64"]), 1e-30),
+            "tensors": len(truth["grads"])}
+    gates = [(loss["cpu64"] > 0, f"{kind}: the step's loss is 0, no gradient to compare")]
+    if kind == "arcface":
+        gates.append((line["loss_rel"] <= TRAIN_DTYPE_LOSS_REL,
+                      f"{kind}: card loss {loss['card']} vs CPU {loss['cpu']} (float64 {loss['cpu64']})"))
+    else:
+        gates.append((line["loss_card_vs_cpu64"] <= 4 * line["loss_cpu_vs_cpu64"],
+                      f"{kind}: card loss {loss['card']}, CPU {loss['cpu']}, float64 {loss['cpu64']}"))
+    per_tensor = {}
+    for what in ("grads", "stats", "params"):
+        own = errors(cpu_r[what], truth[what])
+        vs_truth = errors(card[what], truth[what])
+        per_tensor[what] = {n: [float(f"{own[n]:.3g}"), float(f"{vs_truth[n]:.3g}")] for n in own}
+        over = lambda n: vs_truth[n] / max(1e-3, 4 * own[n])  # noqa: E731
+        worst, ill = max(own, key=over), max(own, key=own.get)
+        pooled = [float(np.sqrt(np.mean([e[n] ** 2 for n in own]))) for e in (own, vs_truth)]
+        line[what] = {"cpu_vs_cpu64_max": own[ill], "card_vs_cpu64_max": max(vs_truth.values()),
+                      "pooled_cpu_card": pooled, "over_4x": sum(over(n) > 1 for n in own),
+                      "worst": [worst, vs_truth[worst], own[worst]]}
+        if what != "params" or kind == "arcface":
+            gates.append((own[ill] < PARITY_OWN_MAX, f"{kind}: the CPU's own error of {what} {ill} is "
+                          f"{own[ill]} of its scale, so a zero tensor would pass"))
+            gates.append((pooled[1] <= 2 * pooled[0], f"{kind}: {what} pooled card error {pooled[1]} "
+                          f"against the CPU's {pooled[0]}"))
+            if kind == "arcface":
+                gates.append((line[what]["over_4x"] == 0, f"{kind}: {what} {worst} off by "
+                              f"{vs_truth[worst]} (the CPU's own error {own[worst]})"))
+    print("train parity", json.dumps(line), flush=True)
+    print("train parity per tensor [CPU vs float64, card vs float64]",
+          json.dumps({"kind": kind, "dtype": dtype, **per_tensor}), flush=True)
+    for ok, what in gates:
+        check(ok, what)
+    return line
+
+
 def heavy_augment_parity(device) -> dict:
     """The heavy tier's augmentation of one ArcFace batch on the card and on
     the CPU from the same draws: within 1e-3 levels; then one step on it."""
@@ -2839,11 +2998,12 @@ def facenet_trainer_run(card: str, data_dir: str, ckpt_dir: str) -> dict:
     return line
 
 
-def train_step_times(card: str, device) -> dict:
-    """The ArcFace step at B 128, 112², ``TRAIN_CLASSES`` classes, heavy
-    augmentation, on data resident on the card (``make_resident_step``): ms
-    a step by CUDA events, images/s, the warp's share of the step's device
-    time (profiler); the FaceNet step at P 8 x K 4, 160² (light)."""
+def resident_step(kind: str, device, dtype: str = "float32"):
+    """``train_step_times``' step on data resident on the card, the model
+    computing in ``dtype``: ``(one, batch, side, tier)``, ``one()`` taking
+    the next of eight fixed batches. ArcFace: B 128, 112², ``TRAIN_CLASSES``
+    classes, heavy augmentation (``warp_sample``'s matrix mode); FaceNet: P
+    8 x K 4, 160², light. The same seeds for every dtype."""
     import numpy as np
     import torch
 
@@ -2856,44 +3016,57 @@ def train_step_times(card: str, device) -> dict:
     from facerecognition_tpu_torch.training.schedules import build_schedule
     from facerecognition_tpu_torch.training.train_arcface import normalize_u8
 
-    rng = np.random.default_rng(SEED + 16)
+    rng = np.random.default_rng(SEED + 16 + (kind == "facenet"))
+    gen = torch.Generator().manual_seed(SEED + 16)
+    b, s, tier = (128, 112, "heavy") if kind == "arcface" else (32, 160, "light")
+    if kind == "arcface":
+        model = init_like_flax(ArcFaceModel(512, num_classes=TRAIN_CLASSES, margin=0.2,
+                                            easy_margin=True, dtype=dtype), gen, ("fc",)).to(device)
+        raw = steps.make_arcface_train_step(0.1)
+        tx = OptaxChain(dict(model.named_parameters()), "sgd", build_schedule(0.01, "cosine", 1000, 20),
+                        weight_decay=5e-4, grad_clip=5.0)
+        labels_all = torch.as_tensor(rng.integers(0, TRAIN_CLASSES, TRAIN_RESIDENT), device=device)
+    else:
+        model = init_like_flax(FaceNetModel(512, dtype=dtype), gen).to(device)
+        raw = steps.make_facenet_train_step(0.5, "semi_hard")
+        tx = OptaxChain(dict(model.named_parameters()), "adam", build_schedule(3e-4, "step", 1000))
+        labels_all = torch.arange(TRAIN_RESIDENT // 4, device=device).repeat_interleave(4)
+    state = steps.TrainState(model, tx)
+    data, _ = warp_inputs(rng, s, TRAIN_RESIDENT, 1, device)
+    data = data.reshape(TRAIN_RESIDENT, -1)
+
+    def with_aug(st, images_u8, labels, g):
+        draws = augment_draws(g, images_u8.shape[0], images_u8.shape[1], tier)
+        return raw(st, normalize_u8(apply_augment(images_u8, draws, tier)), labels, g)
+
+    resident = steps.make_resident_step(with_aug, (s, s, 3))
+    g = torch.Generator(device=device).manual_seed(SEED)
+    if kind == "arcface":
+        batches = [torch.as_tensor(rng.integers(0, TRAIN_RESIDENT, b), device=device) for _ in range(8)]
+    else:
+        ids = [rng.choice(TRAIN_RESIDENT // 4, 8, replace=False) for _ in range(8)]
+        batches = [torch.as_tensor((i[:, None] * 4 + np.arange(4)).reshape(-1), device=device)
+                   for i in ids]
+    turn = [0]
+
+    def one():
+        turn[0] += 1
+        return resident(state, data, labels_all, batches[turn[0] % len(batches)], g)
+
+    return one, b, s, tier
+
+
+def train_step_times(card: str, device) -> dict:
+    """The ArcFace step at B 128, 112², ``TRAIN_CLASSES`` classes, heavy
+    augmentation, on data resident on the card (``resident_step``): ms a
+    step by CUDA events, images/s, the warp's share of the step's device
+    time (profiler); the FaceNet step at P 8 x K 4, 160² (light)."""
+    import numpy as np
+    import torch
+
     out = {"card": card}
-    for kind, b, s, tier in (("arcface", 128, 112, "heavy"), ("facenet", 32, 160, "light")):
-        gen = torch.Generator().manual_seed(SEED + 16)
-        if kind == "arcface":
-            model = init_like_flax(ArcFaceModel(512, num_classes=TRAIN_CLASSES, margin=0.2,
-                                                easy_margin=True), gen, ("fc",)).to(device)
-            raw = steps.make_arcface_train_step(0.1)
-            tx = OptaxChain(dict(model.named_parameters()), "sgd", build_schedule(0.01, "cosine", 1000, 20),
-                            weight_decay=5e-4, grad_clip=5.0)
-            labels_all = torch.as_tensor(rng.integers(0, TRAIN_CLASSES, TRAIN_RESIDENT), device=device)
-        else:
-            model = init_like_flax(FaceNetModel(512), gen).to(device)
-            raw = steps.make_facenet_train_step(0.5, "semi_hard")
-            tx = OptaxChain(dict(model.named_parameters()), "adam", build_schedule(3e-4, "step", 1000))
-            labels_all = torch.arange(TRAIN_RESIDENT // 4, device=device).repeat_interleave(4)
-        state = steps.TrainState(model, tx)
-        data, _ = warp_inputs(rng, s, TRAIN_RESIDENT, 1, device)
-        data = data.reshape(TRAIN_RESIDENT, -1)
-
-        def with_aug(st, images_u8, labels, g, tier=tier, raw=raw):
-            draws = augment_draws(g, images_u8.shape[0], images_u8.shape[1], tier)
-            return raw(st, normalize_u8(apply_augment(images_u8, draws, tier)), labels, g)
-
-        resident = steps.make_resident_step(with_aug, (s, s, 3))
-        g = torch.Generator(device=device).manual_seed(SEED)
-        if kind == "arcface":
-            batches = [torch.as_tensor(rng.integers(0, TRAIN_RESIDENT, b), device=device) for _ in range(8)]
-        else:
-            ids = [rng.choice(TRAIN_RESIDENT // 4, 8, replace=False) for _ in range(8)]
-            batches = [torch.as_tensor((i[:, None] * 4 + np.arange(4)).reshape(-1), device=device)
-                       for i in ids]
-        turn = [0]
-
-        def one():
-            turn[0] += 1
-            return resident(state, data, labels_all, batches[turn[0] % len(batches)], g)
-
+    for kind in ("arcface", "facenet"):
+        one, b, s, tier = resident_step(kind, device)
         ms = statistics.median(cuda_ms(one, 5, 2) for _ in range(3))
         events = profile_kernels(one, calls=3)
         total_us = sum(us for _, us in events.values())
@@ -2907,7 +3080,7 @@ def train_step_times(card: str, device) -> dict:
         check(np.isfinite(loss), f"{kind} timed step loss {loss}")
         print("train step time", json.dumps(line), flush=True)
         out[kind] = line
-        state = model = data = None
+        one = None
         torch.cuda.empty_cache()
     return out
 
@@ -3056,16 +3229,53 @@ def shipped_detector_eval(card: str) -> dict:
     return line
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms (``cudnn.deterministic``, no
+    benchmark) and ``use_deterministic_algorithms`` inside, all restored
+    after. An operation without a deterministic kernel warns instead of
+    raising; the messages are collected in the list this yields. cuBLAS's
+    determinism also needs ``CUBLAS_WORKSPACE_CONFIG`` in the process's
+    environment before its first cuBLAS call (``in_child``'s ``env``)."""
+    import warnings
+
+    import torch
+
+    cudnn = torch.backends.cudnn
+    before = (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    messages: list = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield messages
+        messages.extend(sorted({str(w.message).splitlines()[0] for w in caught}))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before[0], before[1]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+
+
+#: The environment of a phase that runs ``deterministic_algorithms`` (the
+#: synth phase's curriculum, the 16-bit parity's warm-up): cuBLAS's
+#: deterministic workspace.
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
 def curriculum_run(card: str, tmp: str) -> dict:
     """``scripts/train_detector_v4.py`` on the port, its depth cut to
     ``SYNTH_STEPS``: DenseDetNet from ``detector_v3_128`` (calibration and
     arch popped), 128², B 64, ``max_faces`` 2, v4 scenes, lr 7e-4, four
-    producer threads. Step ms by CUDA events, the device's busy share (the
-    profiler's device time of a step on a fixed batch over the wall time a
-    step took in the run), the producers' queue wait a step, the loss
-    history; then ``save_variables`` with ``arch``, ``fit_score_calibration``
-    and the calibrated checkpoint's recall against the warm start's on the
-    same v3 and v4 scenes (seed 778)."""
+    producer threads, under ``deterministic_algorithms`` (cuDNN's fastest
+    algorithms sum the backward in an order that changes from run to run,
+    which moved the gate's recall by a face or two).
+    Step ms by CUDA events, the device's busy share (the profiler's device
+    time of a step on a fixed batch over the wall time a step took in the
+    run), the producers' queue wait a step, the loss history; then
+    ``save_variables`` with ``arch``, ``fit_score_calibration`` and the
+    calibrated checkpoint's recall against the warm start's on the same v3
+    and v4 scenes (seed 778)."""
     import os
     import statistics
 
@@ -3088,15 +3298,18 @@ def curriculum_run(card: str, tmp: str) -> dict:
     timings: dict = {}
     counters = reset_counters()
     t0 = time.perf_counter()
-    variables, history = td.train_detector_curriculum(cfg, log_every=25, init_variables=init,
-                                                      timings=timings)
-    torch.cuda.synchronize()
+    with deterministic_algorithms() as nondeterministic:
+        variables, history = td.train_detector_curriculum(cfg, log_every=25, init_variables=init,
+                                                          timings=timings)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(all(c.count == 0 for c in counters.values()), "a port kernel launched inside the train steps")
     check(all(np.isfinite(h["loss"]) for h in history), f"non-finite curriculum loss {history}")
     step_ms = [a.elapsed_time(b) for a, b in timings["events"]]
     waits = timings["wait_s"]
     line: dict = {"card": card, "steps": SYNTH_STEPS, "steps_full_recipe": 4000, "wall_s": wall,
+                  "nondeterministic_ops": nondeterministic,
+                  "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
                   "steps_per_s": SYNTH_STEPS / wall,
                   "step_ms_median": statistics.median(step_ms), "step_ms_p90": float(np.percentile(step_ms, 90)),
                   "queue_wait_ms_mean": float(np.mean(waits)) * 1e3,
@@ -4447,6 +4660,158 @@ def dtype_phase(card: str, device) -> dict:
     return out
 
 
+def bf16_backward_check(device) -> dict:
+    """One bf16 ArcFace step (ResNet50, B 16, 112²) on the card: the dtypes
+    each convolution's backward read (its output's cotangent) and wrote
+    (its input's and its kernel's gradients), by hooks on the autograd
+    nodes of every ``layers.Conv2d``; the dtypes of the gradients that
+    reach ``OptaxChain``; and the device kernels of the step whose names
+    hold ``dgrad`` or ``wgrad``."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.layers import Conv2d, init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+
+    rng = np.random.default_rng(SEED + 41)
+    model = init_like_flax(ArcFaceModel(512, num_classes=TRAIN_IDENTITIES, dropout=0.0, dtype="bfloat16"),
+                           torch.Generator().manual_seed(SEED + 41), ("fc",)).to(device)
+    state = steps.TrainState(model, OptaxChain(dict(model.named_parameters()), "sgd", lambda c: 0.0))
+    images = torch.as_tensor(rng.normal(size=(PARITY_ARC_B, 112, 112, 3)).astype(np.float32), device=device)
+    labels = torch.as_tensor(rng.integers(0, TRAIN_IDENTITIES, PARITY_ARC_B), device=device)
+    read, wrote, nodes = set(), set(), []
+
+    def on_node(grad_inputs, grad_outputs):
+        read.update(str(g.dtype) for g in grad_outputs if g is not None)
+        wrote.update(str(g.dtype) for g in grad_inputs[:2] if g is not None)
+
+    def on_forward(_m, _x, y):
+        node = y.grad_fn
+        while node is not None and "Convolution" not in type(node).__name__:
+            node = node.next_functions[0][0]  # past a bias add
+        check(node is not None, "a bf16 convolution's output has no convolution node")
+        nodes.append(node.register_hook(on_node))
+
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    hooks = [m.register_forward_hook(on_forward) for m in convs]
+    step = steps.make_arcface_train_step(0.1)
+    try:
+        grads, _ = step.gradients(state, images, labels)
+    finally:
+        for h in hooks + nodes:
+            h.remove()
+    events = profile_kernels(lambda: step.gradients(state, images, labels), calls=1)
+    grad_kernels = sorted(n for n in events if "dgrad" in n.lower() or "wgrad" in n.lower())
+    line = {"convolutions": len(convs), "backward_read": sorted(read), "backward_wrote": sorted(wrote),
+            "grads_to_optax": sorted({str(g.dtype) for g in grads.values()}),
+            "grad_kernels": len(grad_kernels), "grad_kernel_names": grad_kernels[:8]}
+    check(len(nodes) == len(convs), f"{len(nodes)} convolution nodes hooked of {len(convs)}")
+    check(line["backward_read"] == line["backward_wrote"] == ["torch.bfloat16"],
+          f"the convolutions' backward read {line['backward_read']} and wrote {line['backward_wrote']}")
+    check(line["grads_to_optax"] == ["torch.float32"], f"gradients reach OptaxChain in {line['grads_to_optax']}")
+    print("train dtype backward", json.dumps(line), flush=True)
+    return line
+
+
+def dtype_training_runs(device) -> dict:
+    """``TRAIN_DTYPE_RUN``: ArcFace (ResNet50, 512-D, 112²) trained on fixed
+    batches in bf16 and in float32 from one init (SGD, momentum 0.9, a
+    cosine schedule with 3 warmup steps, clip 5): both losses fall (the last
+    five steps' mean below the first five's) and the bf16 final loss (the
+    last five's mean) is within ``TRAIN_DTYPE_FINAL_REL`` of float32's."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.models.arcface import ArcFaceModel
+    from facerecognition_tpu_torch.models.layers import init_like_flax
+    from facerecognition_tpu_torch.training import steps
+    from facerecognition_tpu_torch.training.optim import OptaxChain
+    from facerecognition_tpu_torch.training.schedules import build_schedule
+
+    n_steps, b, classes, n_batches, lr = TRAIN_DTYPE_RUN
+    rng = np.random.default_rng(SEED + 42)
+    batches = [(torch.as_tensor(rng.normal(size=(b, 112, 112, 3)).astype(np.float32), device=device),
+                torch.as_tensor(rng.integers(0, classes, b), device=device)) for _ in range(n_batches)]
+    out = {"steps": n_steps, "batch": b, "classes": classes, "fixed_batches": n_batches, "lr": lr}
+    for dt in ("bfloat16", "float32"):
+        model = init_like_flax(ArcFaceModel(512, num_classes=classes, margin=0.2, easy_margin=True,
+                                            dropout=0.0, dtype=dt),
+                               torch.Generator().manual_seed(SEED + 42), ("fc",)).to(device)
+        state = steps.TrainState(model, OptaxChain(dict(model.named_parameters()), "sgd",
+                                                   build_schedule(lr, "cosine", n_steps, 3),
+                                                   momentum=0.9, grad_clip=5.0))
+        step = steps.make_arcface_train_step(0.1)
+        t0 = time.perf_counter()
+        losses = [step(state, *batches[i % n_batches])["loss"] for i in range(n_steps)]
+        losses = [x.item() for x in losses]
+        out[dt] = {"losses": losses, "first5": statistics.fmean(losses[:5]),
+                   "final": statistics.fmean(losses[-5:]), "seconds": time.perf_counter() - t0}
+        model = state = None
+    out["final_rel"] = abs(out["bfloat16"]["final"] - out["float32"]["final"]) / out["float32"]["final"]
+    print("train dtype runs", json.dumps(out), flush=True)
+    for dt in ("bfloat16", "float32"):
+        check(all(np.isfinite(out[dt]["losses"])), f"{dt} run: losses {out[dt]['losses']}")
+        check(out[dt]["final"] < out[dt]["first5"], f"{dt} run: loss did not fall {out[dt]['losses']}")
+    check(out["final_rel"] <= TRAIN_DTYPE_FINAL_REL,
+          f"bf16 final loss {out['bfloat16']['final']} vs float32 {out['float32']['final']}")
+    return out
+
+
+def dtype_step_times(card: str, device) -> dict:
+    """``resident_step`` in bf16 and in float32, timed in turns
+    (``alternate_ms``): wall ms a step, images/s, and from the profiler
+    the device ms and kernel launches a step."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.tools.checkout_compare import alternate_ms
+
+    out = {"card": card}
+    for kind in ("arcface", "facenet"):
+        runs = {dt: resident_step(kind, device, dt) for dt in ("bfloat16", "float32")}
+        walls = alternate_ms({dt: r[0] for dt, r in runs.items()}, rounds=3, calls=4)
+        out[kind] = {}
+        for dt, (one, b, s, tier) in runs.items():
+            events = profile_kernels(one, calls=3)
+            loss = one()["loss"].item()
+            check(np.isfinite(loss), f"{kind} {dt} timed step loss {loss}")
+            out[kind][dt] = {"batch": b, "side": s, "tier": tier, "ms_per_step": walls[dt]["ms"],
+                             "rounds_ms": walls[dt]["rounds_ms"], "images_per_s": b / walls[dt]["ms"] * 1e3,
+                             "device_ms_per_step": sum(us for _, us in events.values()) / 1e3,
+                             "launches_per_step": sum(n for n, _ in events.values())}
+        out[kind]["bf16_over_f32_wall"] = out[kind]["bfloat16"]["ms_per_step"] / out[kind]["float32"]["ms_per_step"]
+        print("train dtype step time", json.dumps({"kind": kind, **out[kind]}), flush=True)
+        runs = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_dtype_phase(card: str, device) -> dict:
+    """Training in bf16 on the card: one ArcFace and one FaceNet step
+    against the CPU's bf16 step and float64 (``half_parity_step``), the
+    convolutions' backward in bf16 with float32 gradients for the
+    optimizer, ``TRAIN_DTYPE_RUN`` steps in bf16 and float32 from one init,
+    and the step times of both dtypes in turns."""
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    out = {"parity": {kind: timed(f"parity_{kind}", half_parity_step, kind, device)
+                      for kind in ("arcface", "facenet")}}
+    out["backward"] = timed("backward", bf16_backward_check, device)
+    out["runs"] = timed("runs", dtype_training_runs, device)
+    out["times"] = timed("times", dtype_step_times, card, device)
+    out["seconds"] = seconds
+    print("train dtype seconds", json.dumps(seconds), flush=True)
+    return out
+
+
 def phase_child(entry: str, result_path: str, card: str) -> int:
     """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
     written to ``result_path`` as JSON (the body of ``in_child``'s
@@ -4461,12 +4826,13 @@ def phase_child(entry: str, result_path: str, card: str) -> int:
     return 0
 
 
-def in_child(entry: str, card: str) -> dict:
+def in_child(entry: str, card: str, env: Optional[dict] = None) -> dict:
     """A phase in a process of its own, started here and waited for: late
     in this process (after the serving and FaceNet phases) the profiler's
     windows came back without any device event, and the train and synth
     phases time kernels by the profiler. Its lines print to this process's
-    output; its counters are set to 0 and read in that process."""
+    output; its counters are set to 0 and read in that process. ``env``:
+    variables added to its environment."""
     import os
     import tempfile
 
@@ -4478,7 +4844,7 @@ def in_child(entry: str, card: str) -> dict:
         path = os.path.join(tmp, "result.json")
         code = f"import sys, chip_smoke; sys.exit(chip_smoke.phase_child({entry!r}, {path!r}, {card!r}))"
         proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
-                              timeout=WATCHDOG_S)
+                              env={**os.environ, **(env or {})}, timeout=WATCHDOG_S)
         check(proc.returncode == 0, f"the {entry} process exited with {proc.returncode}")
         with open(path) as f:
             return json.load(f)
@@ -4568,7 +4934,7 @@ def main() -> int:
         train = in_child("train_phase", smi)
 
     with phase("synth"):
-        synth = in_child("synth_phase", smi)
+        synth = in_child("synth_phase", smi, DETERMINISTIC_ENV)
 
     with phase("evals"):
         evals = in_child("evals_phase", smi)
@@ -4578,6 +4944,9 @@ def main() -> int:
 
     with phase("dtype"):
         dtype = in_child("dtype_phase", smi)
+
+    with phase("train dtype"):
+        train_dtype = in_child("train_dtype_phase", smi, DETERMINISTIC_ENV)
     evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
                       + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
     evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
@@ -4807,7 +5176,8 @@ def main() -> int:
         "renderer": {k: synth["renderer"][k] for k in ("scenes_per_s_1_thread", "scenes_per_s_4_threads",
                                                        "jpeg_decode_ms_per_scene", "fixture")},
         "curriculum": {k: synth["curriculum"][k] for k in ("step_ms_median", "busy_share",
-                                                           "queue_wait_ms_mean", "steps_per_s")},
+                                                           "queue_wait_ms_mean", "steps_per_s",
+                                                           "nondeterministic_ops")},
         "synthid": {k: synth["synthid"][k] for k in ("render_s", "step_ms", "images_per_s", "final")},
         "seconds": synth["seconds"],
     }), flush=True)
@@ -4826,6 +5196,13 @@ def main() -> int:
         "serving": {k: {key: v[key] for key in ("faces", "planted_top1", "cos_vs_cpu", "cos_vs_f32")}
                     for k, v in dtype["serving"].items()},
         "staged": dtype["staged"], "fused": dtype["fused"], "seconds": dtype["seconds"],
+    }), flush=True)
+    print("train dtype", json.dumps({
+        "parity": train_dtype["parity"], "backward": train_dtype["backward"],
+        "runs": {k: v for k, v in train_dtype["runs"].items() if k not in ("bfloat16", "float32")} | {
+            dt: {k: train_dtype["runs"][dt][k] for k in ("first5", "final", "seconds")}
+            for dt in ("bfloat16", "float32")},
+        "times": train_dtype["times"], "seconds": train_dtype["seconds"],
     }), flush=True)
     for entry in kernels:
         entry["evals_launches"] = evals_launches[entry["name"]]

@@ -109,7 +109,7 @@ def state_module_path(name: str) -> tuple:
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """A port model's ``state_dict`` → flax ``{'params', 'batch_stats'}`` of
-    float32 numpy arrays (the inverse of ``flax_to_state_dict`` with
+    numpy arrays in the tensors' dtype, copies of them (the inverse of ``flax_to_state_dict`` with
     ``include_head``): OIHW → HWIO, Linear (O, I) → Dense (I, O), batch-norm
     ``weight``/``bias``/``running_*`` → ``scale``/``bias``/``mean``/``var``,
     ``num_batches_tracked`` dropped."""
@@ -120,7 +120,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     def put(tree: dict, path: tuple, value) -> None:
         for key in path[:-1]:
             tree = tree.setdefault(key, {})
-        tree[path[-1]] = np.ascontiguousarray(value.detach().cpu().numpy())
+        tree[path[-1]] = np.array(value.detach().cpu().numpy(), order="C")  # a copy, not a view
 
     for key, value in state_dict.items():
         module, _, leaf = key.rpartition(".")

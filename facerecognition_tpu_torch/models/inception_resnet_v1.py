@@ -32,6 +32,7 @@ from facerecognition_tpu_torch.models.layers import (
     as_compute_dtype,
     dropout,
 )
+from facerecognition_tpu_torch.models.xla_cpu import RoundGrad
 
 BN_EPS = 1e-3
 #: Below this side the VALID reduction chain reaches a zero-size map at
@@ -49,7 +50,7 @@ class BasicConv2d(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False,
                            compute_dtype=dtype)
-        self.bn = BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS, input_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
@@ -61,12 +62,16 @@ def _maxpool(x: torch.Tensor) -> torch.Tensor:
 
 def _residual(x: torch.Tensor, scale: float, up: torch.Tensor) -> torch.Tensor:
     """``x + scale * up`` for a float32 ``x`` and the block's ``conv2d``
-    output ``up``, as XLA's jitted graph computes it: in bfloat16 the weakly
-    typed ``scale`` is rounded to bfloat16 and the product stays float32 (its
-    rounding to bfloat16 is dropped before the float32 sum); in float16 and
-    float32 the product is rounded to ``up``'s dtype, then widened."""
+    output ``up``, as XLA's jitted graph computes it: in 16 bits the weakly
+    typed ``scale`` is rounded to ``up``'s dtype; in bfloat16 the product
+    stays float32 (its rounding to bfloat16 is dropped before the float32
+    sum), though its cotangent is rounded to bfloat16 (the convert's
+    transpose), in float16 the product is rounded, then widened."""
+    if up.dtype == torch.float32:
+        return x + scale * up
+    scale = float(torch.tensor(scale, dtype=up.dtype))
     if up.dtype == torch.bfloat16:
-        return x + float(torch.tensor(scale, dtype=torch.bfloat16)) * up.float()
+        return x + RoundGrad.apply(scale * up.float(), torch.bfloat16)
     return x + scale * up
 
 

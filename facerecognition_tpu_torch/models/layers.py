@@ -16,7 +16,10 @@
   does (``momentum`` 0.9 on the running value, the variance ``E[x²] -
   E[x]²`` of the batch clipped at 0, biased).
   ``torch.nn.BatchNorm`` would update ``running_var`` with the unbiased
-  variance. In evaluation mode they are ``torch.nn.BatchNorm``.
+  variance. In evaluation mode they are ``torch.nn.BatchNorm``. A 16-bit
+  input on the CPU (``input_dtype``: a bf16 convolution hands its batch
+  norm float32) takes flax's arithmetic as XLA's graph computes it, forward
+  and back (``models/xla_cpu.py``).
 - ``dropout``: flax's ``Dropout`` (keep with probability ``1 - p``, kept
   values divided by ``1 - p``) drawn from an explicit generator.
 - ``init_like_flax``: flax's initialisers as distributions (the values
@@ -43,6 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from facerecognition_tpu_torch.models.xla_cpu import HalfBatchNorm, HalfConv, round_to, rsqrt
 from facerecognition_tpu_torch.parallel.collectives import BatchShard, all_reduce_sum
 
 #: The compute dtypes a model takes, by name.
@@ -69,7 +73,10 @@ class Conv2d(nn.Conv2d):
     float32 batch norm, and XLA's jitted graph hands that batch norm the
     float32 sum unrounded (its excess precision drops the round trip through
     bf16), so the output is that float32 sum. On the card cuDNN writes it in
-    bf16 and the batch norm widens it: one rounding more than the CPU."""
+    bf16 and the batch norm widens it: one rounding more than the CPU. The
+    backward on the CPU rounds as XLA's graph does (``xla_cpu.HalfConv``);
+    on the card it is cuDNN's in the dtype with float32 accumulation, which
+    rounds the gradients once more."""
 
     def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -79,14 +86,11 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
-        x, w = x.to(dt), self.weight.to(dt)
-        args = (None, self.stride, self.padding, self.dilation, self.groups)
-        if x.device.type != "cpu":
-            y = F.conv2d(x, w, *args)
-        elif self.bias is None and dt == torch.bfloat16:
-            return F.conv2d(x.float(), w.float(), *args)
-        else:  # XLA's bits: float32 sums of the rounded operands, rounded
-            y = F.conv2d(x.float(), w.float(), *args).to(dt)
+        args = (self.stride, self.padding, self.dilation, self.groups)
+        if x.device.type == "cpu":  # XLA's bits: float32 sums of the rounded operands
+            return HalfConv.apply(x, self.weight, self.bias, dt, *args,
+                                  self.bias is None and dt == torch.bfloat16)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, *args)
         if self.bias is not None:
             y = y + self.bias.to(dt).view(1, -1, 1, 1)
         return y
@@ -123,10 +127,13 @@ class GlobalBatchNorm(torch.autograd.Function):
     squares, then the sum of squared deviations (the biased variance, two
     passes); the backward all-reduces the sums of ``dy`` and ``dy·x̂`` that
     ``dx`` needs. ``weight``'s and ``bias``'s gradients are this rank's sums
-    (the step sums gradients over the ranks). Sums accumulate in float64."""
+    (the step sums gradients over the ranks). Sums accumulate in float64.
+    ``half``: the dtype of a 16-bit input on the CPU, whose ``dx`` rounds as
+    flax's VJP does (``xla_cpu.HalfBatchNorm``): the normalisation's and the
+    statistics' cotangents each to ``half``, then their sum."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, n: int):
+    def forward(ctx, x, weight, bias, eps: float, n: int, half: Optional[torch.dtype] = None):
         dims = [0] + list(range(2, x.ndim))
         shape = [1, -1] + [1] * (x.ndim - 2)
         sums = all_reduce_sum(torch.stack([torch.sum(x, dims, dtype=torch.float64),
@@ -138,7 +145,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         xhat = xc * invstd.view(shape)
         sq = sums[1] / n
         ctx.save_for_backward(xhat, invstd, weight)
-        ctx.n = n
+        ctx.n, ctx.half = n, half
         ctx.mark_non_differentiable(mean, sq)
         return xhat * weight.view(shape) + bias.view(shape), mean, sq
 
@@ -150,39 +157,65 @@ class GlobalBatchNorm(torch.autograd.Function):
         local = torch.stack([torch.sum(dy, dims, dtype=torch.float64),
                              torch.sum(dy * xhat, dims, dtype=torch.float64)])
         g = all_reduce_sum(local) / ctx.n
-        dx = (weight * invstd).view(shape) * (
-            dy - g[0].to(dy.dtype).view(shape) - xhat * g[1].to(dy.dtype).view(shape)
-        )
-        return dx, local[1].to(weight.dtype), local[0].to(weight.dtype), None, None
+        mul = (weight * invstd).view(shape)
+        stats = g[0].to(dy.dtype).view(shape) + xhat * g[1].to(dy.dtype).view(shape)
+        if ctx.half is None:
+            dx = mul * (dy - stats)
+        else:
+            dx = round_to(round_to(dy * mul, ctx.half) + round_to(-mul * stats, ctx.half), ctx.half)
+        return dx, local[1].to(weight.dtype), local[0].to(weight.dtype), None, None, None
 
 
 class _FlaxTrainStats:
     #: Off while a rematerialised forward runs again in the backward pass, so
     #: each step updates the running statistics once.
     update_stats = True
+    def __init__(self, *args, input_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        #: The dtype of the values the batch norm reads (its convolution's
+        #: compute dtype): a bf16 convolution on the CPU hands it float32.
+        self.input_dtype = as_compute_dtype(input_dtype)
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         keep = FLAX_MOMENTUM
         self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
         self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
 
-    def _global_forward(self, x: torch.Tensor, shard: BatchShard) -> torch.Tensor:
+    def _global_forward(self, x: torch.Tensor, shard: BatchShard, half) -> torch.Tensor:
         """Training mode over the global batch (``GlobalBatchNorm``)."""
         n = x.numel() // x.shape[1] * shard.world
-        y, mean, sq = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, n)
+        y, mean, sq = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, n, half)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
-                var = torch.clamp(sq - mean * mean, min=0.0)
                 self._update_running(mean.to(x.dtype), var.to(x.dtype))
         return y
 
+    def _flax_normalize(self, x, mean, var) -> torch.Tensor:
+        """flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mul = rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = x.dtype if x.dtype in HALF_DTYPES else self.input_dtype
         if x.dtype in HALF_DTYPES:
             x = x.float()
+        # A 16-bit input on the CPU: XLA's graph of flax's BatchNorm, whose
+        # backward rounds each use's cotangent to the input's dtype.
+        xla = half in HALF_DTYPES and x.device.type == "cpu"
         if not self.training:
+            if xla:
+                return self._flax_normalize(x, self.running_mean, self.running_var)
             return super().forward(x)
         if _shard is not None:
-            return self._global_forward(x, _shard)
+            return self._global_forward(x, _shard, half if xla else None)
+        if xla:
+            y, mean, var = HalfBatchNorm.apply(x, self.weight, self.bias, self.eps, half)
+            if self.update_stats:
+                with torch.no_grad():
+                    self._update_running(mean, var)
+            return y
         if self.update_stats:
             dims = [0] + list(range(2, x.ndim))
             with torch.no_grad():

@@ -54,7 +54,7 @@ class ConvBlock(nn.Module):
         self.linear = linear
         self.conv = Conv2d(cin, features, kernel, strides, pad, groups=groups, bias=False,
                            compute_dtype=dtype)
-        self.bn = BatchNorm2d(features, eps=BN_EPS)
+        self.bn = BatchNorm2d(features, eps=BN_EPS, input_dtype=dtype)
         self.prelu = None if linear else nn.Parameter(torch.full((features,), 0.25))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +98,7 @@ class MobileFaceNet(nn.Module):
         for stride in (2, 2, 2, 2):  # conv1 and the stages' strides: 112 → 7
             side = (side - 1) // stride + 1
         self.gdconv = Conv2d(512, 512, side, groups=512, bias=False, compute_dtype=dt)
-        self.gdbn = BatchNorm2d(512, eps=BN_EPS)
+        self.gdbn = BatchNorm2d(512, eps=BN_EPS, input_dtype=dt)
         self.fc = nn.Linear(512, embedding_size, bias=False)
         self.fc_bn = BatchNorm1d(embedding_size, eps=BN_EPS)
 

@@ -31,16 +31,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         dt = as_compute_dtype(dtype)
         self.conv1 = Conv2d(cin, width, 1, bias=False, compute_dtype=dt)
-        self.bn1 = BatchNorm2d(width, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(width, eps=BN_EPS, input_dtype=dt)
         self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, bias=False,
                             compute_dtype=dt)
-        self.bn2 = BatchNorm2d(width, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(width, eps=BN_EPS, input_dtype=dt)
         self.conv3 = Conv2d(width, width * 4, 1, bias=False, compute_dtype=dt)
-        self.bn3 = BatchNorm2d(width * 4, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(width * 4, eps=BN_EPS, input_dtype=dt)
         if downsample:
             self.downsample_conv = Conv2d(cin, width * 4, 1, stride=stride, bias=False,
                                           compute_dtype=dt)
-            self.downsample_bn = BatchNorm2d(width * 4, eps=BN_EPS)
+            self.downsample_bn = BatchNorm2d(width * 4, eps=BN_EPS, input_dtype=dt)
         else:
             self.downsample_conv = None
 
@@ -64,7 +64,7 @@ class ResNet50Backbone(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = as_compute_dtype(dtype)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=self.dtype)
-        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS, input_dtype=self.dtype)
         self.blocks = []
         cin = 64
         for stage, (n_blocks, width, stride) in enumerate(

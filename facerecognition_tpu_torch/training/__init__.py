@@ -1,8 +1,9 @@
 """Training entry points of the port: the ArcFace, FaceNet and LBPH trainers.
 
-The JAX package's names (its ``__all__``) but ``ArcFaceTrainState``, a flax
-``TrainState``: the port's is ``training.steps.TrainState`` (the model, its
-``OptaxChain`` and the update count).
+The JAX package's names (its ``__all__``). ``ArcFaceTrainState`` is the
+flax ``TrainState`` with ``batch_stats`` over the port's module
+(``training.steps``); the trainers keep ``training.steps.TrainState`` (the
+model, its ``OptaxChain`` and the update count), of which it is a kind.
 
 The names are imported at first use (``__getattr__``), so importing one
 module of the package does not import the others.
@@ -19,6 +20,7 @@ _EXPORTS = {
     "sample_identity": "facerecognition_tpu_torch.training.synthetic_faces",
     "scene_batch": "facerecognition_tpu_torch.training.synthetic_faces",
     "train_detector_curriculum": "facerecognition_tpu_torch.training.train_detector",
+    "ArcFaceTrainState": "facerecognition_tpu_torch.training.steps",
     "make_arcface_train_step": "facerecognition_tpu_torch.training.steps",
     "make_arcface_eval_step": "facerecognition_tpu_torch.training.steps",
     "make_facenet_train_step": "facerecognition_tpu_torch.training.steps",

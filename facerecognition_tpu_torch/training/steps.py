@@ -1,7 +1,8 @@
 """Training steps of the ArcFace and FaceNet trainers.
 
 Counterpart of ``facerecognition_tpu/training/steps.py``. A step takes a
-``TrainState`` (the model, its ``OptaxChain`` and the update count), updates
+``TrainState`` (the model, its ``OptaxChain`` and the update count; or its
+``ArcFaceTrainState``, the JAX package's flax-layout view of one), updates
 it in place, and returns its metrics as 0-d tensors (reading them is the
 caller's synchronisation):
 
@@ -39,13 +40,14 @@ one process trains.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from facerecognition_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from facerecognition_tpu_torch.device import strict_fp32
 from facerecognition_tpu_torch.models.facenet import (
     masked_triplet_loss,
@@ -80,6 +82,49 @@ def apply_gradients(state: TrainState, grads: dict) -> None:
     count goes up by one."""
     state.tx.update(grads)
     state.step += 1
+
+
+class ArcFaceTrainState(TrainState):
+    """The JAX package's ``ArcFaceTrainState`` (a flax ``TrainState`` with
+    ``batch_stats``) over the port's module, which holds the parameters and
+    the batch statistics: ``params`` and ``batch_stats`` read them as
+    flax-layout trees, ``apply_gradients`` updates in place and returns the
+    state. It is a ``TrainState``, so every step here takes it."""
+
+    @classmethod
+    def create(cls, *, apply_fn: torch.nn.Module, params, batch_stats=None,
+               tx: Union[OptaxChain, Callable[[dict], OptaxChain]], step: int = 0):
+        """``apply_fn``: the port's module; ``params`` / ``batch_stats``:
+        flax-layout trees, loaded into it (``convert.flax_to_state_dict``,
+        every name must match); ``tx``: an ``OptaxChain`` over the module's
+        parameters, or a callable that builds one from them by name."""
+        variables = {"params": params, "batch_stats": batch_stats or {}}
+        apply_fn.load_state_dict(flax_to_state_dict(variables, include_head=True), strict=True)
+        if not isinstance(tx, OptaxChain):
+            tx = tx(dict(apply_fn.named_parameters()))
+        return cls(apply_fn, tx, step)
+
+    @property
+    def apply_fn(self) -> torch.nn.Module:
+        return self.model
+
+    @property
+    def params(self) -> dict:
+        return state_dict_to_flax(self.model.state_dict())["params"]
+
+    @property
+    def batch_stats(self) -> dict:
+        return state_dict_to_flax(self.model.state_dict())["batch_stats"]
+
+    def apply_gradients(self, *, grads) -> "ArcFaceTrainState":
+        """One optimizer update; ``grads`` by parameter name, or a flax-layout
+        tree like ``params``."""
+        names = dict(self.model.named_parameters())
+        if not set(grads) <= set(names):
+            grads = {k: g.to(names[k].device)
+                     for k, g in flax_to_state_dict({"params": grads}, include_head=True).items()}
+        apply_gradients(self, grads)
+        return self
 
 
 def softmax_cross_entropy(

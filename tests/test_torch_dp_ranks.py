@@ -55,9 +55,13 @@ class TinyEmbed(torch.nn.Module):
 # -- the port's steps, in a rank or in one process ------------------------------------
 
 
-def _arc_port(variables, dropout_p=0.0):
-    port = ArcFaceModel(EMB, (1, 1, 1, 1), num_classes=C, margin=0.3, easy_margin=False, dropout=dropout_p)
+def _arc_port(variables, dropout_p=0.0, dtype="float32"):
+    """``dtype`` "float64": the float32 model run in float64."""
+    port = ArcFaceModel(EMB, (1, 1, 1, 1), num_classes=C, margin=0.3, easy_margin=False, dropout=dropout_p,
+                        dtype="float32" if dtype == "float64" else dtype)
     port.load_state_dict(flax_to_state_dict(variables, include_head=True), strict=True)
+    if dtype == "float64":
+        port = port.double()
     return steps.TrainState(port, train_arcface.build_tx(arc_config(), SPE, port))
 
 
@@ -114,6 +118,23 @@ def run_port(shard, data):
 
 def _rank_run(rank, world, data):
     return run_port(BatchShard(rank, world, B), data)
+
+
+def run_port_dtype(shard, data, dtype="bfloat16"):
+    """The ArcFace steps in ``dtype`` on ``data["arc_batches"]`` with their
+    mixup draws; ``shard`` None: one process."""
+    take = (lambda a: a) if shard is None else (lambda a: a[shard.start:shard.start + shard.rows])
+    state = _arc_port(data["arc_vars"], dtype=dtype)
+    wide = torch.float64 if dtype == "float64" else torch.float32
+    step = steps.make_arcface_train_step(0.1, MIXUP)
+    metrics = [step(state, torch.from_numpy(take(x)).to(wide), torch.from_numpy(take(labels)).long(),
+                    mix=(lam, torch.from_numpy(perm)), shard=shard)
+               for x, labels, lam, perm in data["arc_batches"]]
+    return _result(state, metrics)
+
+
+def _rank_run_dtype(rank, world, data, dtype):
+    return run_port_dtype(BatchShard(rank, world, B), data, dtype)
 
 
 def two_rank_search(rank, g, q, quantize):

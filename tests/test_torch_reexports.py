@@ -2,8 +2,8 @@
 imports that a re-export hides.
 
 Every name a JAX subpackage lists in ``__all__`` is listed by the port's
-subpackage of the same name and resolves there, less the documented
-absence (``training.ArcFaceTrainState``, a flax ``TrainState``: ROADMAP).
+subpackage of the same name and resolves there (``ABSENT`` lists none:
+``training.ArcFaceTrainState`` is the port's flax-layout train state).
 JAX's ``ops`` binds functions named like its modules (``umeyama``); the
 port's does too, so ``from facerecognition_tpu_torch.ops import umeyama``
 gives the function: no module of the port, its tools or its tests may
@@ -20,7 +20,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = ("ops", "models", "inference", "training", "data", "utils", "preprocessing", "parallel")
 #: Names of the JAX package's ``__all__`` the port leaves out, with the reason in ROADMAP.
-ABSENT = {"training": {"ArcFaceTrainState"}}
+ABSENT: dict = {}
 
 
 @pytest.mark.parametrize("package", PACKAGES)
