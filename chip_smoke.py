@@ -152,7 +152,7 @@ Phases, each printing its wall seconds:
     producers' queue wait, the loss; the checkpoint saved, calibrated on
     ``SYNTH_CAL_SCENES`` scenes, and its recall on v3 and v4 scenes within
     ``SYNTH_RECALL_TOL`` of the warm start's. ``train_synthid`` through
-    ``main()`` at ``SYNTH_IDS`` = 3,000 classes, (1,1,1,1), 512-D, B 128, resident, one
+    ``main()`` at ``SYNTH_IDS`` = 1,000 classes, (1,1,1,1), 512-D, B 128, resident, one
     epoch (render seconds, step ms, images/s, retrieval metrics, one
     ``warp_sample`` a step); its checkpoint in a ``RecognitionEngine``
     names 32 enrolled aligned samples top-1.
@@ -174,9 +174,9 @@ Phases, each printing its wall seconds:
     at the records' sizes or below (the int8 and LBPH ones are cut below
     theirs for the script's time; a record is compared at its own size only):
     ``ood_eval`` (200 scenes x 6 families + control at
-    256², 100 embedder ids), ``int8_agreement`` (4,000 ids x 2, 1M rows;
+    256², 100 embedder ids), ``int8_agreement`` (2,000 ids x 2, 1M rows;
     the record's slim checkpoint; top-1 agreement at least
-    ``EVALS_INT8_MIN_AGREEMENT`` %), ``lbph_scale_eval`` at 400 ids x (8 +
+    ``EVALS_INT8_MIN_AGREEMENT`` %), ``lbph_scale_eval`` at 200 ids x (8 +
     2) on ``render_id_folders``, ``compare_all_models`` and
     ``evaluate_model`` on 120 ids x 12 (seed 1, ``stream``), and
     ``facenet_ab_eval`` on its first 500 images (``docs/COMPARISON.md``'s
@@ -220,8 +220,26 @@ Phases, each printing its wall seconds:
     ``recognize`` in bf16 against the CPU. One fused call at B = 128: no
     cast of a model input in the bf16 call (profiler shapes), bf16 against
     float32 profiled and timed in alternating turns.
+21. measure: the measurement and robustness tools (``measure_phase``, in a
+    process of its own), through their functions at the JAX scripts'
+    default sizes. ``profile_pipeline`` at B 256 with ``--extra`` (10k-row
+    gallery): every stage's ms per batch, then each stage's CPU plain path
+    on the first ``MEASURE_CHECK_ROWS`` rows of the card's own inputs (the
+    resize within 0.5 level, the align within 1.5 and a mean under 0.01,
+    the detector within 1e-3 of scale, the post-process's validity equal and
+    boxes within 1e-3 px, embeddings' cosine at least ``MEASURE_EMBED_COS``,
+    the matches' indices equal); ``bench_embed`` of (3,4,6,3) and (2,2,2,2)
+    at B 256 (cosine against the CPU); ``serving_bench`` with 32 clients x
+    256 requests of a 256² scene (no failure; the answer against the CPU
+    port's engine); ``realtime_bench`` at 64 frames of 720p (the first 4
+    frames' top-1 rows against the CPU's chain) and ``--mjpeg`` at 64
+    frames; ``detector_robustness`` on a rendered 900² face scene (the
+    detected flags equal the CPU port's, IoU within ``MEASURE_IOU_TOL``).
+    Every JSON line has the JAX script's keys and positive times;
+    ``warp_sample``, ``detect_post`` and ``stream_topk`` must launch on their
+    paths.
 
-Phases 7-20 are the paths: every kernel counter is set to 0 just before
+Phases 7-21 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -3120,10 +3138,10 @@ def train_phase(card: str, device) -> dict:
     return out
 
 
-SYNTH_STEPS = 100  # curriculum steps (cut from 300 for the script's time); the script runs 4,000
+SYNTH_STEPS = 30  # curriculum steps (cut from 300, then 100, for the script's time); the script runs 4,000
 SYNTH_EVAL_SCENES = 200  # per envelope, seed 778 (the v4 script evaluates 250)
 SYNTH_CAL_SCENES = 100  # the v4 script fits on 300
-SYNTH_IDS = 3_000  # classes (cut from 9,343, the shipped synthid9k embedder's, for the script's time)
+SYNTH_IDS = 1_000  # classes (cut from 9,343, the shipped synthid9k embedder's, for the script's time)
 SYNTH_RENDER_BUDGET_S = 90.0  # above it the identity set takes 1 train sample an id, not 2
 SYNTH_RECALL_TOL = 0.05  # the curriculum's recall against its warm start
 SYNTH_SHIPPED_TOL = 0.02  # the shipped v4 detector on the port's scenes against JAX's numbers
@@ -3473,11 +3491,11 @@ def synth_phase(card: str, device) -> dict:
     return out
 
 
-EVALS_INT8_IDS = 4_000  # identities (cut from 9,343, the record's, for the script's time)
+EVALS_INT8_IDS = 2_000  # identities (cut from 9,343, the record's, for the script's time)
 EVALS_INT8_RECORD_IDS = 9_343  # docs/INT8_AGREEMENT.json's: its numbers are compared at that size only
 EVALS_INT8_ROWS = 1_000_000  # its --extend-to
 EVALS_INT8_MIN_AGREEMENT = 99.9  # % of probes whose top-1 stream_topk and int8_topk agree on
-EVALS_LBPH_IDS = 400  # cut from 1,000, the script's default and the record's size, for the script's time
+EVALS_LBPH_IDS = 200  # cut from 1,000, the script's default and the record's size, for the script's time
 EVALS_LBPH_RECORD_TOP1 = 0.165  # JAX at 1,000 ids (docs/COMPARISON.md, "LBPH at reference scale")
 EVALS_COMPARE = (120, 12, 160, 1)  # ids, renders, side, seed: docs/COMPARISON.md's set (seed 1 its A/B's)
 EVALS_OOD = (200, 100, 256)  # scenes a row (5 families + control), embedder ids, side (the records)
@@ -4812,6 +4830,273 @@ def train_dtype_phase(card: str, device) -> dict:
     return out
 
 
+MEASURE_BATCH = 256  # profile_pipeline's and bench_embed's default batch
+MEASURE_GALLERY = 10_000  # profile_pipeline's and realtime_bench's default gallery
+MEASURE_ITERS = 16
+MEASURE_CHECK_ROWS = 32  # each stage's first rows held against the CPU on the card's own inputs
+MEASURE_VARIANTS = ((3, 4, 6, 3), (2, 2, 2, 2))
+MEASURE_SERVING = (32, 256, 256)  # clients, requests, frame side (serving_bench's defaults)
+MEASURE_REALTIME = (64, 720, 1280)  # frames, height, width (realtime_bench's defaults)
+MEASURE_REALTIME_CPU_FRAMES = 4  # frames of the chain also run on the CPU
+MEASURE_MJPEG_FRAMES = 64
+MEASURE_ROBUST_SIDE = 900  # the rendered stand-in for the JAX script's 900² photo
+MEASURE_EMBED_COS = 0.999
+MEASURE_IOU_TOL = 0.01
+MEASURE_TIED = 1e-3  # top-1 rows closer than this in score may trade places
+
+
+def _cos_min(a, b) -> float:
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+
+
+def measure_profile(card: str, device) -> dict:
+    """``profile_pipeline`` at B 256 with ``--extra``: every stage timed on
+    the card, then each stage's CPU plain path on the first
+    ``MEASURE_CHECK_ROWS`` rows of the card's own inputs."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.scripts import profile_pipeline as pp
+    from facerecognition_tpu_torch.utils.profiling import ms_per_call
+
+    cpu = torch.device("cpu")
+    inputs = pp.draws(MEASURE_BATCH, MEASURE_GALLERY)
+    detector, embedder = pp.load_models(device)
+    counters = reset_counters()
+    stages = pp.build_stages(MEASURE_BATCH, MEASURE_GALLERY, extra=True, device=device,
+                             detector=detector, embedder=embedder, inputs=inputs)
+    ms = {}
+    with torch.no_grad(), strict_fp32():
+        for name, (fn, args) in stages.items():
+            ms[name] = ms_per_call(fn, args, MEASURE_ITERS, device)
+    launches = {name: c.count for name, c in counters.items() if c.count}
+    for name in ("warp_sample", "detect_post", "stream_topk"):
+        check(launches.get(name, 0) > 0, f"profile_pipeline: {name} did not launch")
+    check(tuple(ms) == pp.STAGES + pp.EXTRA, f"profile_pipeline stages {list(ms)}")
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"profile_pipeline times {ms}")
+
+    n = MEASURE_CHECK_ROWS
+    cpu_det, cpu_emb = pp.load_models(cpu)
+    ref = pp.build_stages(n, MEASURE_GALLERY, extra=True, device=cpu, detector=cpu_det, embedder=cpu_emb,
+                          inputs=(inputs[0][:n], inputs[1]))
+    errs = {}
+    with torch.no_grad(), strict_fp32():
+        for name, (fn, args) in stages.items():
+            got = fn(*args)
+            want = ref[name][0](*(a[:n].cpu() for a in args))
+            if name == "decode_nms":
+                check(torch.equal(got[3][:n].cpu(), want[3]), "decode_nms: validity differs from the CPU")
+                errs[name] = max(float((g[:n].cpu() - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+                check(errs[name] <= 1e-3, f"decode_nms: {errs[name]} px from the CPU")
+            elif name in ("match_topk", "x_topk_lax", "x_topk_blocked", "x_topk_approx"):
+                s_got, i_got = (t[:n].cpu() for t in got)
+                s_want, i_want = want
+                errs[name] = float((s_got - s_want).abs().max())
+                close = (s_want[:, :-1] - s_want[:, 1:]).abs().min(1).values < MEASURE_TIED
+                check(bool(((i_got.long() == i_want.long()).all(1) | close).all()),
+                      f"{name}: indices differ from the CPU")
+                check(errs[name] <= 1e-4, f"{name}: scores {errs[name]} from the CPU")
+            elif name == "embed_resnet50":
+                errs[name] = _cos_min(got[:n].cpu(), want)
+                check(errs[name] >= MEASURE_EMBED_COS, f"embed: min cosine {errs[name]} against the CPU")
+            else:
+                g, w = got[:n].cpu().float(), want.float()
+                diff = (g - w).abs()
+                errs[name] = float(diff.max())
+                if name == "detector_fwd":
+                    rel = errs[name] / float(w.abs().max())
+                    check(rel < 1e-3, f"detector_fwd: {rel} of scale from the CPU")
+                elif name == "warp_align_112":
+                    check(errs[name] <= 1.5 and float(diff.mean()) < 0.01, f"align: {errs[name]} from the CPU")
+                else:
+                    bound = 0.5 if name == "resize_160_to_det" else 1e-3
+                    check(errs[name] <= bound, f"{name}: {errs[name]} from the CPU")
+    out = {"B": MEASURE_BATCH, "gallery": MEASURE_GALLERY, "iters": MEASURE_ITERS, "ms": ms,
+           "sum_ms": sum(ms[k] for k in pp.STAGES), "launches": launches, "cpu_err": errs}
+    print("measure profile_pipeline", json.dumps(out), flush=True)
+    return out
+
+
+def measure_embed(card: str, device) -> dict:
+    """``bench_embed`` of each of ``MEASURE_VARIANTS`` at B 256; the first 8
+    images' embeddings on the card against the CPU's (same weights)."""
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.scripts import bench_embed as be
+
+    rows = []
+    for stages in MEASURE_VARIANTS:
+        model = be.variant_model(stages)
+        cpu_fn = be.variant_forward(be.variant_model(stages), torch.device("cpu"))
+        ips = be.bench_variant(stages, MEASURE_BATCH, MEASURE_ITERS, device, model=model)
+        x = be.frames(8, torch.device("cpu"))
+        with torch.no_grad(), strict_fp32():
+            cos = _cos_min(be.variant_forward(model, device)(x.to(device)).cpu(), cpu_fn(x))
+        check(cos >= MEASURE_EMBED_COS, f"bench_embed {stages}: min cosine {cos} against the CPU")
+        row = {"stage_sizes": list(stages), "img_per_sec": round(ips, 1), "batch": MEASURE_BATCH,
+               "vs_reference_1592": round(ips / be.REFERENCE_IMG_PER_SEC, 2)}
+        check(tuple(row) == be.REPORT_KEYS and ips > 0, f"bench_embed line {row}")
+        print("measure bench_embed", json.dumps({**row, "cos_vs_cpu": cos}), flush=True)
+        rows.append({**row, "cos_vs_cpu": cos})
+    return {"variants": rows}
+
+
+def measure_serving(card: str, device) -> dict:
+    """``serving_bench`` at 32 clients x 256 requests of a 256² scene, then
+    the warm-up answer against the CPU port's engine on the same upload."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.data.native_decode import decode_mem
+    from facerecognition_tpu_torch.examples import serving_bench as sb
+    from facerecognition_tpu_torch.inference.engine import RecognitionEngine
+    from facerecognition_tpu_torch.inference.extract_embeddings import default_arcface_checkpoint
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+
+    clients, requests, frame = MEASURE_SERVING
+    counters = reset_counters()
+    with contextlib.redirect_stderr(io.StringIO()):  # wsgiref logs every request
+        out = sb.run(clients, requests, frame, port=0, device=device, log=lambda *_: None)
+    launches = {name: c.count for name, c in counters.items() if c.count}
+    report = out["report"]
+    check(tuple(report) == sb.REPORT_KEYS, f"serving_bench keys {list(report)}")
+    check(report["failed"] == 0, f"serving_bench: {report['failed']} requests failed")
+    for key in ("throughput_rps", "throughput_imgs_s", "p50_ms", "p99_ms", "mean_batch"):
+        check(np.isfinite(report[key]) and report[key] > 0, f"serving_bench {key} = {report[key]}")
+    # the registry's match kernel is "auto": a 1,000-row gallery is matched
+    # densely, so the path's one kernel is the warp
+    check(launches.get("warp_sample", 0) > 0, "serving_bench: warp_sample did not launch")
+    cpu = torch.device("cpu")
+    ref_engine = RecognitionEngine(checkpoint_path=default_arcface_checkpoint(),
+                                   detector=FaceDetector(confidence_threshold=0.3, device=cpu), device=cpu)
+    gal = np.random.default_rng(0).normal(size=(len(out["engine"].gallery), 512)).astype(np.float32)
+    ref_engine.gallery.add_many([f"id_{i}" for i in range(len(gal))], gal)
+    ref = ref_engine.fused_recognize_frames(decode_mem(out["jpegs"][0])[None])[0]
+    ans = out["answers"][0]
+    scores = [s for _, s in ref["top_k"]]
+    check(ans["identity"] == ref["identity"] or scores[0] - scores[1] < MEASURE_TIED,
+          f"serving_bench: {ans['identity']} on the card, {ref['identity']} on the CPU")
+    check(abs(ans["confidence"] - ref["confidence"]) <= APPS_CONF_TOL,
+          f"serving_bench: confidence {ans['confidence']} against {ref['confidence']}")
+    line = {**report, "launches": launches, "identity": ans["identity"],
+            "confidence_vs_cpu": abs(ans["confidence"] - ref["confidence"])}
+    print("measure serving_bench", json.dumps(line), flush=True)
+    return line
+
+
+def measure_realtime(card: str, device) -> dict:
+    """``realtime_bench`` at 64 frames of 720p, its first frames' chain also
+    on the CPU, then ``--mjpeg`` at 64 frames."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+    from facerecognition_tpu_torch.examples import realtime_bench as rb
+    from facerecognition_tpu_torch.scripts import profile_pipeline as pp
+
+    frames, h, w = MEASURE_REALTIME
+    detector, embedder = pp.load_models(device)
+    counters = reset_counters()
+    lat = rb.latency(frames, h, w, MEASURE_GALLERY, device, detector, embedder)
+    launches = {name: c.count for name, c in counters.items() if c.count}
+    for name in ("warp_sample", "stream_topk"):
+        check(launches.get(name, 0) > 0, f"realtime_bench: {name} did not launch")
+    check(np.isfinite(lat["value"]) and lat["value"] > 0, f"realtime_bench latency {lat['value']}")
+    cpu = torch.device("cpu")
+    cpu_det, cpu_emb = pp.load_models(cpu)
+    n = MEASURE_REALTIME_CPU_FRAMES
+    gal, imgs = rb.staged(n, h, w, MEASURE_GALLERY, cpu)
+    step = rb.frame_step(cpu_det, cpu_emb, gal, h, w)
+    carry = torch.zeros(())
+    with torch.no_grad(), strict_fp32():
+        for i in range(n):
+            carry, idx, scores = step(imgs[i], carry)
+            check(int(idx[0]) == lat["top5"][i][0] or float(scores[0] - scores[1]) < MEASURE_TIED,
+                  f"realtime_bench frame {i}: row {lat['top5'][i][0]} on the card, {int(idx[0])} on the CPU")
+    counters = reset_counters()
+    mj = rb.mjpeg(MEASURE_MJPEG_FRAMES, h, w, device, wait_s=120)
+    mj_launches = {name: c.count for name, c in counters.items() if c.count}
+    # the recognizer's fused calls take the crowd path (M = 4); four
+    # enrolled rows are matched densely ("auto")
+    for name in ("warp_sample", "detect_post"):
+        check(mj_launches.get(name, 0) > 0, f"realtime_bench --mjpeg: {name} did not launch")
+    check(mj["value"] > 0 and mj["recognitions_per_s"] > 0, f"realtime_bench --mjpeg {mj['value']}")
+    out = {"latency": {k: lat[k] for k in rb.LATENCY_KEYS}, "latency_launches": launches,
+           "mjpeg": {k: mj[k] for k in rb.MJPEG_KEYS}, "mjpeg_launches": mj_launches,
+           "mjpeg_result": mj["result"].get("identity")}
+    print("measure realtime_bench", json.dumps(out), flush=True)
+    return out
+
+
+def measure_robustness(card: str, device) -> dict:
+    """``detector_robustness`` on a rendered ``MEASURE_ROBUST_SIDE``² face
+    scene (the JAX script's photo is not in the repository): the table on
+    the card against the CPU port's."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+    from facerecognition_tpu_torch.scripts import detector_robustness as dr
+    from facerecognition_tpu_torch.training.synthetic_faces import scene_batch
+
+    imgs, boxes, _, valid = scene_batch(np.random.default_rng(SEED), 1, MEASURE_ROBUST_SIDE, max_faces=1,
+                                        p_face=1.0)
+    check(bool(valid[0, 0]), "the robustness scene has no face")
+    img, gt = imgs[0].astype(np.uint8), boxes[0, 0].astype(np.float32)
+    cases = list(dr.variants(img, gt))
+    counters = reset_counters()
+    got = dr.evaluate(FaceDetector(confidence_threshold=0.5, device=device), cases)
+    launches = {name: c.count for name, c in counters.items() if c.count}
+    check(launches.get("detect_post", 0) > 0, "detector_robustness: detect_post did not launch")
+    ref = dr.evaluate(FaceDetector(confidence_threshold=0.5, device=torch.device("cpu")), cases)
+    worst = 0.0
+    for a, b in zip(got, ref):
+        check(a["detected"] == b["detected"], f"detector_robustness {a['name']}: {a} on the card, {b} on the CPU")
+        worst = max(worst, abs(a["iou"] - b["iou"]))
+    check(worst <= MEASURE_IOU_TOL, f"detector_robustness: IoU {worst} from the CPU")
+    out = {"side": MEASURE_ROBUST_SIDE, "recall": f"{sum(r['detected'] for r in got)}/{len(got)}",
+           "iou_vs_cpu": worst, "launches": launches, "rows": got}
+    print("measure detector_robustness", json.dumps(out), flush=True)
+    return out
+
+
+def measure_phase(card: str, device) -> dict:
+    """The measurement and robustness tools on the card (``measure``, in a
+    process of its own), each through its functions at the JAX scripts'
+    default sizes, its counters set to 0 just before and read just after."""
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn(card, device)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    out = {"profile": timed("profile_pipeline", measure_profile),
+           "embed": timed("bench_embed", measure_embed),
+           "serving": timed("serving_bench", measure_serving),
+           "realtime": timed("realtime_bench", measure_realtime),
+           "robustness": timed("detector_robustness", measure_robustness)}
+    launches = {}
+    for key, part in (("profile", "launches"), ("serving", "launches"), ("robustness", "launches")):
+        for name, n in out[key][part].items():
+            launches[name] = launches.get(name, 0) + n
+    for part in ("latency_launches", "mjpeg_launches"):
+        for name, n in out["realtime"][part].items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
+    out["seconds"] = seconds
+    print("measure seconds", json.dumps(seconds), flush=True)
+    return out
+
+
 def phase_child(entry: str, result_path: str, card: str) -> int:
     """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
     written to ``result_path`` as JSON (the body of ``in_child``'s
@@ -4947,6 +5232,9 @@ def main() -> int:
 
     with phase("train dtype"):
         train_dtype = in_child("train_dtype_phase", smi, DETERMINISTIC_ENV)
+
+    with phase("measure"):
+        measure = in_child("measure_phase", smi)
     evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
                       + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
     evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
@@ -5204,8 +5492,17 @@ def main() -> int:
             for dt in ("bfloat16", "float32")},
         "times": train_dtype["times"], "seconds": train_dtype["seconds"],
     }), flush=True)
+    print("measure", json.dumps({
+        "profile_ms": measure["profile"]["ms"], "bench_embed": measure["embed"]["variants"],
+        "serving": {k: measure["serving"][k] for k in ("throughput_rps", "p50_ms", "p99_ms", "mean_batch",
+                                                       "device_duty_cycle")},
+        "realtime": measure["realtime"]["latency"], "mjpeg": measure["realtime"]["mjpeg"],
+        "robustness_recall": measure["robustness"]["recall"], "launches": measure["launches"],
+        "seconds": measure["seconds"],
+    }), flush=True)
     for entry in kernels:
         entry["evals_launches"] = evals_launches[entry["name"]]
+        entry["measure_launches"] = measure["launches"].get(entry["name"], 0)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

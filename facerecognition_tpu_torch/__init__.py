@@ -17,3 +17,22 @@ Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+
+def _first_vector_math_call() -> None:
+    """One serial call of MKL's vector math before any parallel one.
+
+    PyTorch's CPU ``exp``, ``log``, ``sin``, ... go through MKL's vector math
+    library, which sets itself up at its first call in the process. When that
+    first call is made by several intra-op threads of one operator at once
+    (a tensor of more than 2,048 elements), the set-up races, and one
+    thread's share can come out wrong: a whole chunk of ``torch.exp`` up to
+    1,769 ulps off, in up to 1 of 30 fresh processes on a loaded 8-core
+    host; every later call is exact. One call on a single element settles
+    it for the whole process."""
+    import torch
+
+    torch.exp(torch.zeros(1))
+
+
+_first_vector_math_call()

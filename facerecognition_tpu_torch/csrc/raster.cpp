@@ -1,5 +1,6 @@
 // Host rasterisation and resampling for the procedural face renderer
-// (training/synthetic_faces.py, training/ood_faces.py).
+// (training/synthetic_faces.py, training/ood_faces.py) and the detector's
+// robustness transforms (scripts/detector_robustness.py).
 //
 // Each function is the port's counterpart of one OpenCV 5 call the JAX
 // package's renderer makes, on C-contiguous float32 or float64 HWC images
@@ -30,6 +31,19 @@
 //   weights from the position's fraction, two lerps in x and one in y,
 //   each an fma. float64 as its older path: positions in fixed point
 //   rounded to 1/32, weights from the 32 x 32 float table.
+// - warp_affine_u8_reflect: warpAffine INTER_LINEAR of uint8 pixels with
+//   BORDER_REFLECT, as OpenCV 5 computes it: the float32 warp's positions
+//   and fma lerps on the pixels as floats, every tap's indices reflected,
+//   rounded half to even. Its vectorised body covers each row's first
+//   width - width % 16 columns (16: two AVX2 vectors of 8 floats); its
+//   scalar loop takes the rest, with positions fl(fma(x, m0, fl(y*m1)) + m2).
+// - resize_area_u8: resize INTER_AREA of uint8 pixels: an exact integer
+//   shrink block-averaged (2 x 2 in integers, rounded half up), another
+//   shrink by the area table summed in float, an enlargement by linear
+//   interpolation with the area coefficients in 11-bit fixed point.
+// - gaussian_blur_u8: GaussianBlur of uint8 pixels in OpenCV's fixed point
+//   (size cvRound(6 sigma + 1) | 1, 8-bit taps by error diffusion, integer
+//   sums, reflect-101 border).
 // - estimate_affine_partial: estimateAffinePartial2D's RANSAC (OpenCV's
 //   generator and seed, its two-point kernel, float errors against a 3 px
 //   threshold, its iteration update), then the least-squares similarity on
@@ -886,6 +900,101 @@ int count_inliers(const float* from, const float* to, int n, const double* M, fl
   return good;
 }
 
+
+// BORDER_REFLECT (fedcba|abcdef|fedcba): p folded into [0, n).
+inline int reflect(int p, int n) {
+  if (n == 1) return 0;
+  int period = 2 * n;
+  p %= period;
+  if (p < 0) p += period;
+  return p < n ? p : period - 1 - p;
+}
+
+// The uint8 warp with the reflect border: the float32 warp's sample
+// positions, weights and fma lerps on the pixels as floats, each tap's
+// indices reflected into the image, rounded half to even and saturated,
+// as OpenCV 5's warpAffine computes 8-bit pixels. The last width % 16
+// columns of a row are its scalar loop's, whose positions round otherwise.
+#define FRT_WARP_U8_ROWS(FMA)                                                          \
+  const int tail = dw - dw % 16;                                                       \
+  for (int y = 0; y < dh; ++y) {                                                       \
+    float mx = (float)((float)y * m[1] + m[2]);                                        \
+    float my = (float)((float)y * m[4] + m[5]);                                        \
+    float ym1 = (float)y * m[1], ym4 = (float)y * m[4];                                \
+    uint8_t* out = dst + (size_t)y * dw * cn;                                          \
+    for (int x = 0; x < dw; ++x, out += cn) {                                          \
+      float fx = (float)x;                                                             \
+      float sx = x < tail ? FMA(m[0], fx, mx) : FMA(fx, m[0], ym1) + m[2];             \
+      float sy = x < tail ? FMA(m[3], fx, my) : FMA(fx, m[3], ym4) + m[5];             \
+      float flx = std::floor(sx), fly = std::floor(sy);                                \
+      float a = sx - flx, b = sy - fly;                                                \
+      int ix = (int)std::max(std::min(flx, 1e9f), -1e9f);                              \
+      int iy = (int)std::max(std::min(fly, 1e9f), -1e9f);                              \
+      int x0 = reflect(ix, sw), x1 = reflect(ix + 1, sw);                              \
+      const uint8_t* r0 = src + (size_t)reflect(iy, sh) * sw * cn;                     \
+      const uint8_t* r1 = src + (size_t)reflect(iy + 1, sh) * sw * cn;                 \
+      for (int k = 0; k < cn; ++k) {                                                   \
+        float p00 = r0[x0 * cn + k], p01 = r0[x1 * cn + k];                            \
+        float p10 = r1[x0 * cn + k], p11 = r1[x1 * cn + k];                            \
+        float v0 = FMA(a, p01 - p00, p00);                                             \
+        float v1 = FMA(a, p11 - p10, p10);                                             \
+        float v = FMA(b, v1 - v0, v0);                                                 \
+        out[k] = (uint8_t)std::min(std::max((int)std::nearbyint(v), 0), 255);          \
+      }                                                                                \
+    }                                                                                  \
+  }
+
+__attribute__((target("fma"))) void warp_u8_rows_hw(const uint8_t* src, int sh, int sw, int cn, const float* m,
+                                                    uint8_t* dst, int dh, int dw) {
+  FRT_WARP_U8_ROWS(__builtin_fmaf)
+}
+
+void warp_u8_rows_sw(const uint8_t* src, int sh, int sw, int cn, const float* m, uint8_t* dst, int dh, int dw) {
+  FRT_WARP_U8_ROWS(std::fmaf)
+}
+
+// resize INTER_AREA's table for a shrink of ssize to dsize: (dst, src,
+// weight) triples, as OpenCV's computeResizeAreaTab in double.
+struct AreaTap {
+  int di, si;
+  float alpha;
+};
+
+std::vector<AreaTap> area_tab(int ssize, int dsize, double scale) {
+  std::vector<AreaTap> tab;
+  for (int dx = 0; dx < dsize; ++dx) {
+    double fsx1 = dx * scale, fsx2 = fsx1 + scale;
+    double cell = std::min(scale, ssize - fsx1);
+    int sx1 = (int)std::ceil(fsx1), sx2 = (int)std::floor(fsx2);
+    sx2 = std::min(sx2, ssize - 1);
+    sx1 = std::min(sx1, sx2);
+    if (sx1 - fsx1 > 1e-3) tab.push_back({dx, sx1 - 1, (float)((sx1 - fsx1) / cell)});
+    for (int sx = sx1; sx < sx2; ++sx) tab.push_back({dx, sx, (float)(1.0 / cell)});
+    if (fsx2 - sx2 > 1e-3) tab.push_back({dx, sx2, (float)(std::min(std::min(fsx2 - sx2, 1.), cell) / cell)});
+  }
+  return tab;
+}
+
+// OpenCV's INTER_AREA enlargement: linear interpolation with the area
+// coefficients (the fraction of a destination pixel that the next source
+// pixel covers), in its 11-bit fixed point.
+void area_up_coefs(int ssize, int dsize, std::vector<int>& ofs, std::vector<int>& coef) {
+  double scale = (double)ssize / dsize, inv = (double)dsize / ssize;
+  ofs.resize(dsize);
+  coef.resize(2 * (size_t)dsize);
+  for (int d = 0; d < dsize; ++d) {
+    int s = (int)std::floor(d * scale);
+    float f = (float)((d + 1) - (s + 1) * inv);
+    f = f <= 0 ? 0.f : f - std::floor(f);
+    if (s >= ssize - 1) {
+      f = 0;
+      s = ssize - 1;
+    }
+    ofs[d] = s;
+    coef[2 * d] = round_even((1.f - f) * 2048);
+    coef[2 * d + 1] = round_even(f * 2048);
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -1160,6 +1269,166 @@ int frt_estimate_affine_partial(const float* from, const float* to, int n, doubl
   M[5] = mY - b * mx - a * my;
   if (mask) std::memcpy(mask, best.data(), n);
   return max_good;
+}
+
+
+// cv2.warpAffine(src, M, (dw, dh), flags=INTER_LINEAR,
+// borderMode=BORDER_REFLECT) of uint8 pixels; M maps source to destination.
+void frt_warp_affine_u8_reflect(const uint8_t* src, int sh, int sw, int cn, const double* Min, uint8_t* dst, int dh,
+                                int dw) {
+  double M[6];
+  std::memcpy(M, Min, sizeof(M));
+  double D = M[0] * M[4] - M[1] * M[3];
+  D = D != 0 ? 1. / D : 0;
+  double A11 = M[4] * D, A22 = M[0] * D;
+  M[0] = A11;
+  M[1] *= -D;
+  M[3] *= -D;
+  M[4] = A22;
+  double b1 = -M[0] * M[2] - M[1] * M[5];
+  double b2 = -M[3] * M[2] - M[4] * M[5];
+  M[2] = b1;
+  M[5] = b2;
+  float m[6];
+  for (int i = 0; i < 6; ++i) m[i] = (float)M[i];
+  static const bool hw = __builtin_cpu_supports("fma");
+  if (hw)
+    warp_u8_rows_hw(src, sh, sw, cn, m, dst, dh, dw);
+  else
+    warp_u8_rows_sw(src, sh, sw, cn, m, dst, dh, dw);
+}
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_AREA) of uint8 pixels:
+// an exact integer shrink averages each block (a 2 x 2 block in integers,
+// rounded half up; OpenCV's resizeAreaFast), another shrink sums the area table in
+// float and rounds half to even, an enlargement interpolates linearly with
+// the area coefficients in fixed point.
+void frt_resize_area_u8(const uint8_t* src, int sh, int sw, int cn, uint8_t* dst, int dh, int dw) {
+  double sx = (double)sw / dw, sy = (double)sh / dh;
+  int isx = (int)std::lround(sx), isy = (int)std::lround(sy);
+  size_t srow = (size_t)sw * cn, drow = (size_t)dw * cn;
+  if (sx >= 1 && sy >= 1) {
+    if (std::fabs(sx - isx) < 2.220446049250313e-16 && std::fabs(sy - isy) < 2.220446049250313e-16) {
+      int area = isx * isy;
+      float inv = (float)(1.0 / area);
+      for (int y = 0; y < dh; ++y)
+        for (int x = 0; x < dw; ++x)
+          for (int k = 0; k < cn; ++k) {
+            int sum = 0;
+            for (int j = 0; j < isy; ++j)
+              for (int i = 0; i < isx; ++i) sum += src[(size_t)(y * isy + j) * srow + (size_t)(x * isx + i) * cn + k];
+            int v = area == 4 ? (sum + 2) >> 2 : (int)std::nearbyint(sum * inv);
+            dst[(size_t)y * drow + (size_t)x * cn + k] = (uint8_t)std::min(v, 255);
+          }
+      return;
+    }
+    std::vector<AreaTap> tx = area_tab(sw, dw, sx), ty = area_tab(sh, dh, sy);
+    std::vector<float> rows((size_t)sh * drow, 0.f), acc(drow);
+    for (int y = 0; y < sh; ++y) {
+      const uint8_t* s = src + (size_t)y * srow;
+      float* r = rows.data() + (size_t)y * drow;
+      for (const AreaTap& t : tx)
+        for (int k = 0; k < cn; ++k) r[(size_t)t.di * cn + k] += t.alpha * (float)s[(size_t)t.si * cn + k];
+    }
+    size_t i = 0;
+    for (int y = 0; y < dh; ++y) {
+      std::fill(acc.begin(), acc.end(), 0.f);
+      for (; i < ty.size() && ty[i].di == y; ++i) {
+        const float* r = rows.data() + (size_t)ty[i].si * drow;
+        for (size_t c = 0; c < drow; ++c) acc[c] += ty[i].alpha * r[c];
+      }
+      uint8_t* d = dst + (size_t)y * drow;
+      for (size_t c = 0; c < drow; ++c) d[c] = (uint8_t)std::min(std::max((int)std::nearbyint(acc[c]), 0), 255);
+    }
+    return;
+  }
+  std::vector<int> xo, xc, yo, yc;
+  area_up_coefs(sw, dw, xo, xc);
+  area_up_coefs(sh, dh, yo, yc);
+  std::vector<int> rows((size_t)sh * drow);
+  for (int y = 0; y < sh; ++y) {
+    const uint8_t* s = src + (size_t)y * srow;
+    int* r = rows.data() + (size_t)y * drow;
+    for (int x = 0; x < dw; ++x) {
+      int x0 = xo[x], x1 = std::min(x0 + 1, sw - 1);
+      for (int k = 0; k < cn; ++k) r[(size_t)x * cn + k] = s[x0 * cn + k] * xc[2 * x] + s[x1 * cn + k] * xc[2 * x + 1];
+    }
+  }
+  for (int y = 0; y < dh; ++y) {
+    const int* r0 = rows.data() + (size_t)yo[y] * drow;
+    const int* r1 = rows.data() + (size_t)std::min(yo[y] + 1, sh - 1) * drow;
+    uint8_t* d = dst + (size_t)y * drow;
+    for (size_t c = 0; c < drow; ++c) {
+      int64_t v = (int64_t)r0[c] * yc[2 * y] + (int64_t)r1[c] * yc[2 * y + 1];
+      d[c] = (uint8_t)std::min<int64_t>(std::max<int64_t>((v + (1 << 21)) >> 22, 0), 255);
+    }
+  }
+}
+
+// The 8-bit Gaussian kernel of cv2.GaussianBlur(img, (0, 0), sigma): size
+// cvRound(6 sigma + 1) | 1, the taps in double (getGaussianKernelBitExact),
+// turned into 8-bit fractions by error diffusion from the outside in, the
+// centre tap taking what is left of 256. Returns the size.
+int frt_gaussian_kernel_u8(double sigma, int* out, int cap) {
+  int n = round_even(sigma * 3 * 2 + 1) | 1;
+  int n2 = (n - 1) / 2;
+  double scale2 = -0.125 / (sigma * sigma);
+  std::vector<double> values(n2 + 1);
+  double sum = 0;
+  for (int i = 0, x = 1 - n; i < n2; i++, x += 2) {
+    double t = std::exp((double)(x * x) * scale2);
+    values[i] = t;
+    sum += t;
+  }
+  sum *= 2;
+  sum += 1;
+  double mul = 1. / sum;
+  std::vector<int> k(n);
+  double err = 0;
+  int total = 0;
+  for (int i = 0; i < n2; ++i) {
+    double adj = values[i] * mul * 256.0 + err;
+    int v = round_even(adj);
+    err = adj - v;
+    k[i] = k[n - 1 - i] = v;
+    total += v;
+  }
+  k[n2] = 256 - 2 * total;
+  for (int i = 0; i < std::min(n, cap); ++i) out[i] = k[i];
+  return n;
+}
+
+// cv2.GaussianBlur(src, (0, 0), sigma) of uint8 pixels: OpenCV's fixed
+// point, rows then columns with the 8-bit kernel and the reflect-101
+// border, integer sums, (sum + 2^15) >> 16 at the end.
+void frt_gaussian_blur_u8(const uint8_t* src, uint8_t* dst, int h, int w, int cn, double sigma) {
+  int k[512];
+  int n = std::min(frt_gaussian_kernel_u8(sigma, k, 512), 512);
+  int r = n / 2;
+  size_t m = (size_t)w * cn;
+  std::vector<int32_t> tmp((size_t)h * m);
+  std::vector<int> xo(w + 2 * r);
+  for (int i = -r; i < w + r; ++i) xo[i + r] = reflect101(i, w);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* row = src + (size_t)y * m;
+    int32_t* t = tmp.data() + (size_t)y * m;
+    for (int x = 0; x < w; ++x)
+      for (int c = 0; c < cn; ++c) {
+        int32_t s = 0;
+        for (int j = 0; j < n; ++j) s += k[j] * row[xo[x + j] * cn + c];
+        t[(size_t)x * cn + c] = s;
+      }
+  }
+  std::vector<const int32_t*> taps(n);
+  for (int y = 0; y < h; ++y) {
+    for (int j = 0; j < n; ++j) taps[j] = tmp.data() + (size_t)reflect101(y - r + j, h) * m;
+    uint8_t* d = dst + (size_t)y * m;
+    for (size_t c = 0; c < m; ++c) {
+      uint32_t s = 0;
+      for (int j = 0; j < n; ++j) s += (uint32_t)k[j] * (uint32_t)taps[j][c];
+      d[c] = (uint8_t)std::min<uint32_t>((s + (1u << 15)) >> 16, 255u);
+    }
+  }
 }
 
 }  // extern "C"

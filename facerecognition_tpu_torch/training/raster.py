@@ -6,7 +6,10 @@ makes, with cv2's arguments: the drawing functions draw in place into
 C-contiguous float32 or float64 (H, W) or (H, W, 3) arrays, as cv2 draws
 into the renderer's arrays of either type; ``gaussian_blur`` and
 ``warp_affine`` return a new array of their input's type (float32 or
-float64), ``resize_cubic`` a float32 one. The library is built
+float64), ``resize_cubic`` a float32 one. ``warp_affine_u8_reflect``,
+``resize_area_u8`` and ``gaussian_blur_u8`` take and return uint8 images:
+the detector robustness script's transforms
+(``scripts/detector_robustness.py``). The library is built
 with the host C++ compiler at first use into ``_build/``
 (``_build.build_host``); a failed build raises. ctypes releases the GIL for
 each call, so producer threads render in parallel; ``DrawList`` records a
@@ -51,7 +54,11 @@ def _lib() -> ctypes.CDLL:
                                     _INT, _INT]
     lib.frt_estimate_affine_partial.argtypes = [_F32P, _F32P, _INT, _F64P, _U8P]
     lib.frt_estimate_affine_partial.restype = _INT
-    for f in ("frt_gaussian_blur", "frt_resize_cubic", "frt_rotation_matrix", "frt_warp_affine"):
+    lib.frt_warp_affine_u8_reflect.argtypes = [_U8P, _INT, _INT, _INT, _F64P, _U8P, _INT, _INT]
+    lib.frt_resize_area_u8.argtypes = [_U8P, _INT, _INT, _INT, _U8P, _INT, _INT]
+    lib.frt_gaussian_blur_u8.argtypes = [_U8P, _U8P, _INT, _INT, _INT, _DBL]
+    for f in ("frt_gaussian_blur", "frt_resize_cubic", "frt_rotation_matrix", "frt_warp_affine",
+              "frt_warp_affine_u8_reflect", "frt_resize_area_u8", "frt_gaussian_blur_u8"):
         getattr(lib, f).restype = None
     return lib
 
@@ -253,6 +260,43 @@ def warp_affine(img, m, dsize: tuple[int, int]) -> np.ndarray:
     out = np.empty((h, w) + src.shape[2:], src.dtype)
     _lib().frt_warp_affine(src.ctypes.data, src.shape[0], src.shape[1], cn, int(src.dtype == np.float64),
                            mat.ctypes.data_as(_F64P), out.ctypes.data, h, w)
+    return out
+
+
+def warp_affine_u8_reflect(img, m, dsize: tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, m, (w, h), flags=INTER_LINEAR,
+    borderMode=BORDER_REFLECT)`` of a uint8 image."""
+    src, cn = _image(img, (np.uint8,))
+    mat = np.ascontiguousarray(np.asarray(m, np.float64).reshape(2, 3))
+    w, h = int(dsize[0]), int(dsize[1])
+    out = np.empty((h, w) + src.shape[2:], np.uint8)
+    _lib().frt_warp_affine_u8_reflect(src.ctypes.data_as(_U8P), src.shape[0], src.shape[1], cn,
+                                      mat.ctypes.data_as(_F64P), out.ctypes.data_as(_U8P), h, w)
+    return out
+
+
+def resize_area_u8(img, dsize: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)`` of a uint8
+    image."""
+    src, cn = _image(img, (np.uint8,))
+    w, h = int(dsize[0]), int(dsize[1])
+    if w < 1 or h < 1:
+        raise ValueError(f"resize_area_u8: empty output size {dsize}")
+    out = np.empty((h, w) + src.shape[2:], np.uint8)
+    _lib().frt_resize_area_u8(src.ctypes.data_as(_U8P), src.shape[0], src.shape[1], cn,
+                              out.ctypes.data_as(_U8P), h, w)
+    return out
+
+
+def gaussian_blur_u8(img, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (0, 0), sigma)`` of a uint8 image (OpenCV's
+    fixed-point path)."""
+    src, cn = _image(img, (np.uint8,))
+    if not 0 < sigma < 40:
+        raise ValueError(f"gaussian_blur_u8 takes 0 < sigma < 40, got {sigma}")
+    out = np.empty_like(src)
+    _lib().frt_gaussian_blur_u8(src.ctypes.data_as(_U8P), out.ctypes.data_as(_U8P), src.shape[0],
+                                src.shape[1], cn, float(sigma))
     return out
 
 

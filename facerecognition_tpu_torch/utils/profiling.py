@@ -7,7 +7,9 @@ Counterpart of ``facerecognition_tpu/utils/profiling.py``:
   Chrome trace (``trace.json``, for Perfetto or ``chrome://tracing``) in
   ``log_dir``;
 - ``ThroughputCounter``: rolling items/s and latency percentiles over the
-  last N events.
+  last N events;
+- ``ms_per_call``: the measurement tools' timer (``scripts/profile_pipeline``,
+  ``scripts/bench_embed``, ``examples/realtime_bench``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,47 @@ from typing import Iterator
 import torch
 
 TRACE_FILE = "trace.json"
+
+
+def _leaves(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    return []
+
+
+def ms_per_call(fn, inputs: tuple, iters: int, device: torch.device) -> float:
+    """Best of 3 rounds of ``iters`` calls ``fn(*inputs)``, in ms per call.
+
+    The JAX tools time a ``lax.scan`` inside one ``jit`` so that XLA cannot
+    drop an unread result; eager PyTorch runs every kernel it launches, so
+    here, after one warm-up call, each round's calls run between two CUDA
+    events on the card (wall clock on the CPU) and the round ends on the
+    second event. Nothing is read inside the rounds; a floating-point
+    output of the last call that is not finite raises."""
+    cuda = device.type == "cuda"
+    out = fn(*inputs)
+    best = float("inf")
+    for _ in range(3):
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*inputs)
+        if cuda:
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms / iters)
+    for t in _leaves(out):
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise FloatingPointError("an output of the timed call is not finite")
+    return best
 
 
 @contextlib.contextmanager

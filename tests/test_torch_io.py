@@ -113,15 +113,19 @@ def test_port_imports_nothing_of_jax():
         "       'yaml', 'sklearn', 'matplotlib', 'pandas')\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n"
         "print(sorted(m.split('.')[-1] for m in sys.modules if m.startswith(p.__name__ + '.ops.')))\n"
+        "print(sorted(m.split('.')[-1] for m in sys.modules\n"
+        "             if m.startswith((p.__name__ + '.scripts.', p.__name__ + '.examples.'))))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     )
-    bad, ops = out.stdout.strip().splitlines()
+    bad, ops, tools = out.stdout.strip().splitlines()
     assert bad == "[]", out.stdout + out.stderr
     for wrapper in ("stream_topk", "warp_sample", "detect_post"):
         assert f"'{wrapper}'" in ops, ops
+    for tool in MEASURE_TOOLS:
+        assert f"'{tool.split('.')[-1]}'" in tools, tools
 
 
 def test_csrc_does_not_include_torch_headers():
@@ -146,7 +150,16 @@ DRIVERS = {
     "examples.evaluate_model": ["--data-dir", "ids"],
     "examples.compare_all_models": ["--data-dir", "ids"],
     "preprocessing.celeba": ["celeba", "out"],
+    "scripts.profile_pipeline": ["--batch", "2"],
+    "scripts.bench_embed": ["--variants", "1,1,1,1"],
+    "scripts.detector_robustness": ["--image", "photo.jpg"],
+    "examples.serving_bench": ["--port", "0"],
+    "examples.realtime_bench": ["--frames", "2"],
 }
+
+#: The measurement and robustness tools (in ``DRIVERS`` too).
+MEASURE_TOOLS = ("scripts.profile_pipeline", "scripts.bench_embed", "scripts.detector_robustness",
+                 "examples.serving_bench", "examples.realtime_bench")
 
 
 def _entry_points():
