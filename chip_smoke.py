@@ -238,8 +238,29 @@ Phases, each printing its wall seconds:
     Every JSON line has the JAX script's keys and positive times;
     ``warp_sample``, ``detect_post`` and ``stream_topk`` must launch on their
     paths.
+22. bench: the end-to-end benches (``bench_phase``, in a process of its
+    own), each through its ``main``. ``bench`` at its defaults (B 256, 16
+    batches a run, a 10k-row gallery, 160², ``--warp bf16``), at
+    ``--max-faces 4`` on B 64 frames of 256² (the window path), and at B 64,
+    2 batches a run, with ``--warp int8``, ``--warp f32``, each ``--ablate``
+    and ``--noise``; then ``bench_gallery`` at 250,000 rows, 2 batches a run,
+    all three paths (its two parity checks run inside it). Every line
+    parses with the JAX script's keys; each run's launches equal what its
+    mode implies (``bench_launches_expected``: two ``warp_sample`` calls and,
+    at M > 1, one ``detect_post`` a batch; no ``stream_topk`` at 10k rows,
+    where ``auto`` matches densely; one ``stream_topk`` and one
+    ``int8_topk`` call a batch in ``bench_gallery``); each run's first
+    ``BENCH_CHECK_FRAMES`` frames through its batch on the card against the
+    CPU port (detector scores within ``BENCH_DET_TOL``, top-5 scores within
+    ``BENCH_SCORE_TOL``, indices equal where the CPU's gap to a
+    neighbouring score exceeds it) and its ``mean_det_score`` within
+    ``BENCH_MEAN_DET_TOL`` of the CPU's. The default and crowd runs also
+    check their whole batch (``bench_full_batch``): the detector scores
+    against the CPU port's within ``BENCH_DET_TOL``, and the align's output
+    (``warp_sample`` at the bench's shapes) against the CPU's plain warp
+    from the card's landmarks within ``BENCH_ALIGN_LEVELS``.
 
-Phases 7-21 are the paths: every kernel counter is set to 0 just before
+Phases 7-22 are the paths: every kernel counter is set to 0 just before
 each and read just after, and each kernel of the path must have launched;
 after each serving phase, one fused call at B = 128 is profiled
 (``fused_profile``: device µs per kernel, launches per call, host time the
@@ -5097,6 +5118,197 @@ def measure_phase(card: str, device) -> dict:
     return out
 
 
+BENCH_CHECK_FRAMES = 8  # each run's first frames through its batch on the card and on the CPU
+BENCH_SCORE_TOL = {"bf16": 1e-3, "int8": 2e-3, "f32": 1e-3}  # by --warp (int8: the warp's known rounding)
+BENCH_DET_TOL = 1e-4
+BENCH_MEAN_DET_TOL = 1e-3
+#: The align's output on the card against the CPU's plain warp, in levels of the frame (x 127.5):
+#: (max, mean), as tests/test_torch_bench.py holds the port's align against JAX's
+BENCH_ALIGN_LEVELS = (2.0, 0.01)
+BENCH_FULL_RUNS = ("default", "crowd")  # runs whose whole batch is checked (bench_full_batch)
+#: bench.main's runs (name, argv): the defaults (B 256, K 16, 10k rows, 160², bf16), the crowd
+#: window path, then each other --warp, --ablate and --noise at B 64, K 2
+BENCH_RUNS = (("default", []), ("crowd", ["--max-faces", "4", "--batch", "64"])) + tuple(
+    (name, argv + ["--batch", "64", "--iters", "2"])
+    for name, argv in (("int8", ["--warp", "int8"]), ("f32", ["--warp", "f32"]),
+                       ("ablate_detect", ["--ablate", "detect"]), ("ablate_warp", ["--ablate", "warp"]),
+                       ("ablate_match", ["--ablate", "match"]), ("noise", ["--noise"])))
+BENCH_GALLERY_ARGV = ["--gallery", "250000", "--iters", "2"]
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "gallery", "frame", "trained_weights", "ablate",
+              "max_faces", "frames_per_sec", "ms_per_frame", "gt_faces_per_frame", "slots_per_sec",
+              "mean_det_score")  # bench.py's JSON line, in its order
+BENCH_CROWD_KEYS = ("max_faces", "frames_per_sec", "ms_per_frame", "gt_faces_per_frame", "slots_per_sec")
+BENCH_GALLERY_KEYS = (("metric", "value", "unit", "max_score_err"), ("metric", "value", "unit", "vs_baseline"))
+
+
+def _printed(fn, argv):
+    """``fn(argv)`` with its standard output captured, printed again, and
+    returned: (result, the printed lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def bench_launches_expected(m: int, frame: int, ablate: str, noise: bool, batches: int) -> dict:
+    """The kernels a ``bench`` run launches: per batch the detector's resize
+    (not under the detect ablation), then the align (the window at M > 1 on
+    frames above 160², a second resize under the warp ablation), and
+    ``detect_post`` at M > 1; plus the detection sanity's resize and
+    ``detect_post`` (scenes only). No ``stream_topk`` at 10k rows (``auto``
+    matches densely), no ``int8_topk``."""
+    second = ("resize/float32" if ablate == "warp" else
+              "window/float32" if m > 1 and frame > 160 else "align/float32")
+    kinds = {second: batches}
+    if ablate != "detect":
+        kinds["resize/float32"] = kinds.get("resize/float32", 0) + batches
+    post = batches if m > 1 else 0
+    if not noise:
+        kinds["resize/float32"] = kinds.get("resize/float32", 0) + 1
+        post += 1
+    return {"warp_sample": kinds, "detect_post": post, "stream_topk": 0, "int8_topk": 0}
+
+
+def bench_full_batch(name: str, p, ref, frames_np) -> dict:
+    """The whole batch of a run through ``Pipeline.detect`` and ``align`` on
+    the card (``p``) and on the CPU (``ref``): the detector scores within
+    ``BENCH_DET_TOL``; the align's output within ``BENCH_ALIGN_LEVELS`` of
+    the CPU's plain warp of the same frames from the card's landmarks; the
+    landmarks' largest difference (pixels of the detector) is recorded."""
+    import torch
+
+    from facerecognition_tpu_torch.device import strict_fp32
+
+    t0 = time.perf_counter()
+    frames, frames_cpu = torch.as_tensor(frames_np, device=p.device), torch.as_tensor(frames_np)
+    lm, d, det_size = p.detect(frames)
+    lm_ref, d_ref, _ = ref.detect(frames_cpu)
+    with torch.no_grad(), strict_fp32():
+        x = p.align(frames, lm, det_size).cpu()
+        x_ref = ref.align(frames_cpu, lm.cpu(), det_size)
+    det_err = float((d.cpu() - d_ref).abs().max())
+    levels = (x - x_ref).abs() * 127.5
+    out = {"frames": len(frames_np), "det_scores": det_err, "landmarks": float((lm.cpu() - lm_ref).abs().max()),
+           "align_max_levels": float(levels.max()), "align_mean_levels": float(levels.mean())}
+    check(det_err <= BENCH_DET_TOL, f"bench {name}: the batch's detector scores {det_err} from the CPU")
+    check(out["align_max_levels"] <= BENCH_ALIGN_LEVELS[0] and out["align_mean_levels"] < BENCH_ALIGN_LEVELS[1],
+          f"bench {name}: the batch's align {out} from the CPU")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def bench_run(name: str, argv: list, cpu_models, device) -> dict:
+    """One ``bench.main`` run on the card: its line's keys, its launches
+    against ``bench_launches_expected``, then its first
+    ``BENCH_CHECK_FRAMES`` frames through its batch on the card and on the
+    CPU (detector scores, top-5 scores and indices; the indices where the
+    CPU's own gap to a neighbouring score exceeds the tolerance) and the
+    detection sanity against the CPU's."""
+    import numpy as np
+    import torch
+
+    from facerecognition_tpu_torch import bench
+    from facerecognition_tpu_torch.ops.matcher import cosine_topk
+
+    counters = reset_counters()
+    out, lines = _printed(bench.main, argv)
+    launches = {"warp_sample": counters["warp_sample"].by_kind(),
+                **{k: counters[k].count for k in ("detect_post", "stream_topk", "int8_topk")}}
+    line, p = out["line"], out["pipeline"]
+    check(json.loads(lines[-1]) == line, f"bench {name}: the last line is not the run's line")
+    m, ablate, noise = p.max_faces, p.ablate, "--noise" in argv
+    absent = set() if m > 1 else set(BENCH_CROWD_KEYS)
+    absent |= set() if ablate else {"ablate"}
+    absent |= {"mean_det_score"} if noise else set()
+    check(list(line) == [k for k in BENCH_KEYS if k not in absent], f"bench {name} keys {list(line)}")
+    check(line["value"] > 0 and line["trained_weights"] is True, f"bench {name} line {line}")
+    iters = int(argv[argv.index("--iters") + 1]) if "--iters" in argv else 16
+    want = bench_launches_expected(m, line["frame"], ablate, noise, 4 * iters)  # a warm-up run and 3 timed runs
+    check(launches == want, f"bench {name}: launches {launches}, expected {want}")
+
+    frames_np, gal_np, _ = out["inputs"]
+    f8 = frames_np[:BENCH_CHECK_FRAMES]
+    ref = bench.Pipeline(m, ablate, p.warp_mode, torch.device("cpu"), *cpu_models)
+    gal_cpu = torch.as_tensor(gal_np)
+    s, i, d = (t.cpu() for t in p.one_batch(torch.as_tensor(f8, device=device),
+                                            torch.as_tensor(gal_np, device=device)))
+    emb, d_ref = ref.embed(torch.as_tensor(f8))
+    s_ref, i_ref = ref.match(emb, gal_cpu)
+    warp = next(w for w, mode in bench.WARP_MODES.items() if mode == p.warp_mode)
+    tol = BENCH_SCORE_TOL[warp]
+    det_err = float((d - d_ref).abs().max())
+    score_err = float((s - s_ref).abs().max())
+    check(det_err <= BENCH_DET_TOL, f"bench {name}: detector scores {det_err} from the CPU")
+    check(score_err <= tol, f"bench {name}: scores {score_err} from the CPU")
+    if ablate == "match":
+        check(bool((i == i_ref).all()), f"bench {name}: indices differ from the CPU")
+    else:
+        top6 = cosine_topk(emb, gal_cpu, 6, normalized=True)[0]
+        gaps = (top6[:, 1:] - top6[:, :-1]).abs()
+        apart = torch.minimum(torch.cat([torch.full_like(gaps[:, :1], float("inf")), gaps[:, :4]], 1), gaps)
+        firm = apart > tol
+        check(bool((i[firm] == i_ref[firm]).all()), f"bench {name}: indices differ from the CPU")
+    mean_det = None
+    if not noise:
+        got = p.mean_det_score(torch.as_tensor(frames_np, device=device))
+        mean_det = abs(got - ref.mean_det_score(torch.as_tensor(frames_np)))
+        check(round(got, 3) == line["mean_det_score"] and mean_det <= BENCH_MEAN_DET_TOL,
+              f"bench {name}: mean_det_score {got} ({mean_det} from the CPU)")
+    cpu_err = {"det_scores": det_err, "scores": score_err, "mean_det_score": mean_det}
+    if name in BENCH_FULL_RUNS:
+        cpu_err["full_batch"] = bench_full_batch(name, p, ref, frames_np)
+    return {"line": line, "rounds_ms": out["rounds_ms"], "launches": launches, "cpu_err": cpu_err}
+
+
+def bench_gallery_run(device) -> dict:
+    """``bench_gallery`` at ``BENCH_GALLERY_ARGV``: the two JAX checks run
+    inside it; every line parses with the JAX script's keys and the port's
+    metric names; one ``stream_topk`` and one ``int8_topk`` call per batch
+    (a warm-up run and 3 timed runs) plus one each for the parity lines."""
+    from facerecognition_tpu_torch import bench_gallery
+
+    counters = reset_counters()
+    out, lines = _printed(bench_gallery.main, BENCH_GALLERY_ARGV)
+    launches = {k: counters[k].count for k in ("stream_topk", "int8_topk", "warp_sample")}
+    n = BENCH_GALLERY_ARGV[1]
+    iters = int(BENCH_GALLERY_ARGV[3])
+    parsed = [json.loads(line) for line in lines[1:]]
+    check(lines[0].startswith("# gallery=") and len(parsed) == 5, f"bench_gallery lines {lines}")
+    check([p["metric"] for p in parsed] == [
+        "stream_vs_dense_top1_agreement", "int8_vs_dense_top1_agreement",
+        *(f"gallery_match_qps_{path}_N{n}" for path in bench_gallery.PATHS)], f"bench_gallery metrics {parsed}")
+    check(all(tuple(p) == BENCH_GALLERY_KEYS[j >= 2] for j, p in enumerate(parsed)), "bench_gallery keys")
+    check(launches == {"stream_topk": 1 + 4 * iters, "int8_topk": 1 + 4 * iters, "warp_sample": 0},
+          f"bench_gallery launches {launches}")
+    return {"lines": parsed, "rounds_ms": {k: v["rounds_ms"] for k, v in out["paths"].items()},
+            "launches": launches}
+
+
+def bench_phase(card: str, device) -> dict:
+    """The end-to-end benches on the card (``bench``, in a process of its
+    own): ``bench.main`` for each of ``BENCH_RUNS`` (``bench_run``), then
+    ``bench_gallery.main`` (``bench_gallery_run``)."""
+    import torch
+
+    from facerecognition_tpu_torch import bench
+    from facerecognition_tpu_torch.inference.extract_embeddings import load_arcface_model
+    from facerecognition_tpu_torch.preprocessing.face_detector import FaceDetector
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_models = (FaceDetector(device=cpu), load_arcface_model(bench.embedder_weights(), device=cpu))
+    runs = {name: bench_run(name, argv, cpu_models, device) for name, argv in BENCH_RUNS}
+    gallery = bench_gallery_run(device)
+    launches = {}
+    for part in [r["launches"] for r in runs.values()] + [gallery["launches"]]:
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + (sum(n.values()) if isinstance(n, dict) else n)
+    return {"runs": runs, "gallery": gallery, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
 def phase_child(entry: str, result_path: str, card: str) -> int:
     """``entry`` (``train_phase``, ``synth_phase``) on the card, its result
     written to ``result_path`` as JSON (the body of ``in_child``'s
@@ -5235,6 +5447,9 @@ def main() -> int:
 
     with phase("measure"):
         measure = in_child("measure_phase", smi)
+
+    with phase("bench"):
+        bench = in_child("bench_phase", smi)
     evals_launches = {name: sum(paths.get(name, 0) for paths in evals["full"]["launches"].values())
                       + evals["reduced"]["launches"].get(name, 0) for name in KERNELS}
     evals_launches["warp_sample"] += evals["celeba"]["warp_sample_launches"]
@@ -5500,9 +5715,17 @@ def main() -> int:
         "robustness_recall": measure["robustness"]["recall"], "launches": measure["launches"],
         "seconds": measure["seconds"],
     }), flush=True)
+    print("bench", json.dumps({
+        "lines": {k: r["line"] for k, r in bench["runs"].items()}, "gallery": bench["gallery"]["lines"],
+        "rounds_ms": {k: r["rounds_ms"] for k, r in bench["runs"].items()},
+        "gallery_rounds_ms": bench["gallery"]["rounds_ms"],
+        "cpu_err": {k: r["cpu_err"] for k, r in bench["runs"].items()}, "launches": bench["launches"],
+        "seconds": bench["seconds"],
+    }), flush=True)
     for entry in kernels:
         entry["evals_launches"] = evals_launches[entry["name"]]
         entry["measure_launches"] = measure["launches"].get(entry["name"], 0)
+        entry["bench_launches"] = bench["launches"].get(entry["name"], 0)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

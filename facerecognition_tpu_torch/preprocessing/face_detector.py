@@ -153,6 +153,15 @@ class FaceDetector:
         self.dtype = self.net.dtype
         self.anchors = torch.as_tensor(anchor_centers(input_size), device=self.device)
 
+    def calibrate(self, scores: np.ndarray) -> np.ndarray:
+        """Raw detector scores under the checkpoint's Platt calibration
+        (a, b); the scores themselves without one."""
+        if self._calibration is None:
+            return scores
+        a, b = self._calibration
+        p = np.clip(scores, 1e-9, 1 - 1e-9)
+        return 1.0 / (1.0 + np.exp(-(a * np.log(p / (1 - p)) + b)))
+
     @torch.no_grad()
     def _run(self, image: np.ndarray):
         """Resize to the detector size, detect, and map back to image pixels:
@@ -170,10 +179,7 @@ class FaceDetector:
         boxes = boxes.astype(np.float64)
         lms = lms.astype(np.float64)
         scores = scores.astype(np.float64)
-        if self._calibration is not None:
-            a, b = self._calibration
-            p = np.clip(scores, 1e-9, 1 - 1e-9)
-            scores = 1.0 / (1.0 + np.exp(-(a * np.log(p / (1 - p)) + b)))
+        scores = self.calibrate(scores)
         sx, sy = w / s, h / s
         boxes[:, 0::2] *= sx
         boxes[:, 1::2] *= sy

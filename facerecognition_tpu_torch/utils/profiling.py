@@ -9,20 +9,29 @@ Counterpart of ``facerecognition_tpu/utils/profiling.py``:
 - ``ThroughputCounter``: rolling items/s and latency percentiles over the
   last N events;
 - ``ms_per_call``: the measurement tools' timer (``scripts/profile_pipeline``,
-  ``scripts/bench_embed``, ``examples/realtime_bench``).
+  ``scripts/bench_embed``, ``examples/realtime_bench``);
+- ``checksum_rounds``: the end-to-end benches' timer (``bench``,
+  ``bench_gallery``), with the JAX benches' checksum carried on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
+import tempfile
 import time
 from collections import deque
-from typing import Iterator
+from typing import Callable, Iterator
 
 import torch
 
 TRACE_FILE = "trace.json"
+
+
+def default_trace_dir() -> str:
+    """``trace``'s directory when none is given, resolved at the call."""
+    return os.path.join(tempfile.gettempdir(), "frt_trace")
 
 
 def _leaves(out) -> list:
@@ -31,6 +40,21 @@ def _leaves(out) -> list:
     if isinstance(out, (tuple, list)):
         return [t for o in out for t in _leaves(o)]
     return []
+
+
+def _timed(run: Callable[[], object], cuda: bool) -> tuple[float, object]:
+    """(ms, result) of ``run()``: between two CUDA events on the card, the
+    round ending on the second event, or by wall clock on the CPU."""
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+    t0 = time.perf_counter()
+    out = run()
+    return (time.perf_counter() - t0) * 1e3, out
 
 
 def ms_per_call(fn, inputs: tuple, iters: int, device: torch.device) -> float:
@@ -43,22 +67,17 @@ def ms_per_call(fn, inputs: tuple, iters: int, device: torch.device) -> float:
     second event. Nothing is read inside the rounds; a floating-point
     output of the last call that is not finite raises."""
     cuda = device.type == "cuda"
-    out = fn(*inputs)
-    best = float("inf")
-    for _ in range(3):
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        else:
-            t0 = time.perf_counter()
+
+    def run():
+        out = None
         for _ in range(iters):
             out = fn(*inputs)
-        if cuda:
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end)
-        else:
-            ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    fn(*inputs)
+    best, out = float("inf"), None
+    for _ in range(3):
+        ms, out = _timed(run, cuda)
         best = min(best, ms / iters)
     for t in _leaves(out):
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
@@ -66,11 +85,45 @@ def ms_per_call(fn, inputs: tuple, iters: int, device: torch.device) -> float:
     return best
 
 
+def checksum_rounds(step: Callable[[torch.Tensor, int], torch.Tensor], iters: int,
+                    device: torch.device) -> list[tuple[float, float]]:
+    """(ms, checksum) of each of 3 runs of the calls ``carry = step(carry,
+    i)``, i = 0 .. ``iters`` - 1, after one warm-up run.
+
+    The JAX benches scan their batches inside one ``jit`` with a float32
+    checksum in the carry, read once a run. Here the carry (a float32
+    scalar on ``device``, 0 at the start of a run) stays on the device, each
+    run's calls go between two CUDA events on the card (wall clock on the
+    CPU), nothing is read inside a run, and its checksum is read after its
+    end event; a checksum that is not finite raises."""
+    cuda = device.type == "cuda"
+
+    def run():
+        carry = torch.zeros((), device=device)
+        for i in range(iters):
+            carry = step(carry, i)
+        return carry
+
+    float(run())  # warm-up; the read waits for it
+    out = []
+    for _ in range(3):
+        ms, carry = _timed(run, cuda)
+        checksum = float(carry)
+        if not math.isfinite(checksum):
+            raise FloatingPointError(f"the run's checksum is {checksum}")
+        out.append((ms, checksum))
+    return out
+
+
 @contextlib.contextmanager
-def trace(log_dir: str = "traces") -> Iterator[torch.profiler.profile]:
+def trace(log_dir: str | None = None) -> Iterator[torch.profiler.profile]:
     """Profile the enclosed block; yields the profiler (its
     ``key_averages()`` give the kernels' device time) and writes
-    ``log_dir/trace.json`` when the block ends."""
+    ``log_dir/trace.json`` when the block ends. ``log_dir`` defaults to
+    ``frt_trace`` in the temporary directory: JAX's ``/tmp/frt_trace``
+    where ``TMPDIR`` is not set."""
+    if log_dir is None:
+        log_dir = default_trace_dir()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

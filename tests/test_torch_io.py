@@ -115,17 +115,20 @@ def test_port_imports_nothing_of_jax():
         "print(sorted(m.split('.')[-1] for m in sys.modules if m.startswith(p.__name__ + '.ops.')))\n"
         "print(sorted(m.split('.')[-1] for m in sys.modules\n"
         "             if m.startswith((p.__name__ + '.scripts.', p.__name__ + '.examples.'))))\n"
+        "print(sorted(m.split('.')[-1] for m in sys.modules if m.count('.') == 1\n"
+        "             and m.startswith(p.__name__ + '.bench')))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     )
-    bad, ops, tools = out.stdout.strip().splitlines()
+    bad, ops, tools, benches = out.stdout.strip().splitlines()
     assert bad == "[]", out.stdout + out.stderr
     for wrapper in ("stream_topk", "warp_sample", "detect_post"):
         assert f"'{wrapper}'" in ops, ops
     for tool in MEASURE_TOOLS:
         assert f"'{tool.split('.')[-1]}'" in tools, tools
+    assert benches == str(sorted(BENCHES)), benches
 
 
 def test_csrc_does_not_include_torch_headers():
@@ -135,7 +138,7 @@ def test_csrc_does_not_include_torch_headers():
         assert "torch/extension.h" not in src and "#include <torch" not in src, name
 
 
-#: The drivers (``scripts/``, ``examples/``, the CelebA CLI): their
+#: The drivers (``scripts/``, ``examples/``, the CelebA CLI, the benches): their
 #: ``main`` given what each requires and no ``--device``.
 DRIVERS = {
     "scripts.export_facenet": ["--out", "facenet.msgpack"],
@@ -155,11 +158,15 @@ DRIVERS = {
     "scripts.detector_robustness": ["--image", "photo.jpg"],
     "examples.serving_bench": ["--port", "0"],
     "examples.realtime_bench": ["--frames", "2"],
+    "bench": ["--batch", "2", "--gallery", "64"],
+    "bench_gallery": ["--gallery", "2000", "--dim", "64"],
 }
 
 #: The measurement and robustness tools (in ``DRIVERS`` too).
 MEASURE_TOOLS = ("scripts.profile_pipeline", "scripts.bench_embed", "scripts.detector_robustness",
                  "examples.serving_bench", "examples.realtime_bench")
+#: The end-to-end benches at the package root (in ``DRIVERS`` too).
+BENCHES = ("bench", "bench_gallery")
 
 
 def _entry_points():

@@ -84,15 +84,29 @@ def jax_script(rel: str):
 
 def dumped_keys(rel: str, func: str) -> list[list[str]]:
     """The literal keys of each dict passed to ``json.dumps`` in ``func`` of
-    a JAX script, in order."""
+    a JAX script, in order. A ``**`` entry gives the keys of the dict it
+    can spread: the first branch of a conditional (``**({...} if c else
+    {})``), or every dict literal ``func`` assigns to the name it spreads."""
     tree = ast.parse(open(os.path.join(REPO, rel)).read())
     fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == func)
-    out = []
-    for node in ast.walk(fn):
-        if (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps"
-                and isinstance(node.args[0], ast.Dict)):
-            out.append([k.value for k in node.args[0].keys])
-    return out
+
+    def keys(node) -> list[str]:
+        out = []
+        for k, v in zip(node.keys, node.values):
+            if k is not None:
+                out.append(k.value)
+            elif isinstance(v, ast.IfExp):
+                out += keys(v.body)
+            else:
+                for a in ast.walk(fn):
+                    if (isinstance(a, ast.Assign) and isinstance(a.value, ast.Dict)
+                            and any(getattr(t, "id", None) == v.id for t in a.targets)):
+                        out += [key for key in keys(a.value) if key not in out]
+        return out
+
+    return [keys(node.args[0]) for node in ast.walk(fn)
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps"
+            and isinstance(node.args[0], ast.Dict)]
 
 
 @pytest.fixture(scope="module")

@@ -54,6 +54,28 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
+def test_trace_default_directory_is_jax(tmp_path, monkeypatch):
+    """``trace()`` with no argument writes where the JAX ``trace`` does when
+    no temporary directory is set, and inside ``TMPDIR`` when one is."""
+    import inspect
+    import tempfile
+
+    from facerecognition_tpu.utils import profiling as jax_profiling
+
+    jax_default = inspect.signature(jax_profiling.trace).parameters["log_dir"].default
+    for name in ("TMPDIR", "TEMP", "TMP"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    assert profiling.default_trace_dir() == jax_default == "/tmp/frt_trace"
+
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    assert profiling.default_trace_dir() == str(tmp_path / "frt_trace")
+    with profiling.trace():
+        torch.mm(torch.ones(4, 4), torch.ones(4, 4))
+    assert (tmp_path / "frt_trace" / profiling.TRACE_FILE).is_file()
+
+
 def test_visualize_batch(tmp_path):
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, (6, 32, 32, 3)).astype(np.uint8)
